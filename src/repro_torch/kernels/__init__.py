@@ -1,0 +1,18 @@
+"""The port's hand-written CUDA kernels (``csrc/``), each with its plain
+PyTorch version and a launch counter."""
+
+from repro_torch.kernels import buffer_fold, round_recv, round_step
+
+KERNELS = {"round_step": round_step, "round_recv": round_recv,
+           "buffer_fold": buffer_fold}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel: launches since the last reset}``."""
+    return {name: mod.launches for name, mod in KERNELS.items()}

@@ -1,0 +1,165 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an sm_90 CUDA device and skips elsewhere; the file
+imports no JAX, so it runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Inputs come from a seeded numpy generator; the kernel's output on the card
+must equal the plain version's on the CPU exactly (tolerance 0), and each
+wrapper must count one launch per call.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, kernels
+from repro_torch.core import GCounter, GSet
+from repro_torch.kernels import buffer_fold as kfold
+from repro_torch.kernels import ops
+from repro_torch.kernels import round_recv as krecv
+from repro_torch.kernels import round_step as kstep
+from repro_torch.sync import ENGINES, simulate, topology, workloads
+
+KINDS = {"max_i32": ("max", np.int32), "max_bool": ("max", np.bool_),
+         "bitor_u32": ("bitor", np.uint32)}
+FLAVORS = {"state": (0, False, False), "classic": (1, False, False),
+           "bp": ("P+1", True, False), "rr": (1, False, True),
+           "bprr": ("P+1", True, True)}
+
+
+@pytest.fixture
+def sm90():
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs an sm_90 CUDA device")
+    return torch.device("cuda")
+
+
+def rand_state(rng, kind_name, *shape):
+    dt = KINDS[kind_name][1]
+    if dt == np.bool_:
+        return rng.integers(0, 2, size=shape).astype(bool)
+    if dt == np.uint32:
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    return rng.integers(0, 50, size=shape).astype(np.int32)
+
+
+def both(a, dev):
+    """The same numpy input on the CPU and on the card."""
+    t = convert.to_torch(a)
+    return t, t.to(dev)
+
+
+def assert_equal(got, want, name):
+    assert (got is None) == (want is None), name
+    if got is not None:
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+@pytest.mark.parametrize("topo_name", ["mesh9d4", "tree15", "mesh40d4"])
+def test_round_step_kernel_vs_plain(sm90, kind_name, flavor, topo_name, rng):
+    """N = 40 takes more nodes than a block has node-threads (32)."""
+    topo = {"mesh9d4": lambda: topology.partial_mesh(9, 4),
+            "tree15": lambda: topology.tree(15),
+            "mesh40d4": lambda: topology.partial_mesh(40, 4)}[topo_name]()
+    n, p, b, u = topo.num_nodes, topo.max_degree, 2, 1001
+    k, per_origin, extracts = FLAVORS[flavor]
+    k = p + 1 if k == "P+1" else k
+    arrays = [rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, k, b, n, u) if k else None,
+              (rng.integers(0, 2, size=(b, n, p))
+               * topo.mask.numpy()).astype(np.int32),
+              rng.integers(0, 2, size=(b, n)).astype(np.int32) if k else None]
+    cpu = [None if a is None else both(a, sm90)[0] for a in arrays]
+    dev = [None if a is None else both(a, sm90)[1] for a in arrays]
+    kind = KINDS[kind_name][0]
+    for emit_inbox in (False, True):
+        kw = dict(kind=kind, per_origin=per_origin, extracts=extracts,
+                  emit_inbox=emit_inbox)
+        n0 = kstep.launches
+        got = kstep.round_step(*dev, topo.nbrs.to(sm90), topo.rev.to(sm90),
+                               **kw)
+        torch.cuda.synchronize()
+        assert kstep.launches == n0 + 1
+        want = kstep.round_step(*cpu, topo.nbrs, topo.rev, **kw)
+        for nm, g, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                             "ssend", "cnt", "dsz"), got, want):
+            assert_equal(g, w, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("emit_stored,emit_cov",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)])
+def test_round_recv_kernel_vs_plain(sm90, kind_name, emit_stored, emit_cov,
+                                    rng):
+    p, m, u = 4, 15, 1001
+    d = both(rand_state(rng, kind_name, p, m, u), sm90)
+    x = both(rand_state(rng, kind_name, m, u), sm90)
+    act = both(rng.integers(0, 2, size=(m, p)).astype(np.int32), sm90)
+    kw = dict(kind=KINDS[kind_name][0], emit_stored=emit_stored,
+              emit_cov=emit_cov)
+    n0 = krecv.launches
+    got = ops.round_recv(d[1], x[1], active=act[1], **kw)
+    torch.cuda.synchronize()
+    assert krecv.launches == n0 + 1
+    want = ops.round_recv(d[0], x[0], active=act[0], **kw)
+    for nm, g, w in zip(("x'", "stored", "cov", "cnt", "dsz"), got, want):
+        assert_equal(g, w, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("k", [2, 5, 9])
+@pytest.mark.parametrize("configs", [0, 2])
+def test_buffer_fold_kernel_vs_plain(sm90, kind_name, k, configs, rng):
+    """[K, N, U] and a batch [K, B, N, U] of buffers."""
+    shape = (k, configs, 15, 1001) if configs else (k, 15, 1001)
+    buf = both(rand_state(rng, kind_name, *shape), sm90)
+    kind = KINDS[kind_name][0]
+    n0 = kfold.launches
+    got = ops.buffer_fold(buf[1], kind=kind)
+    torch.cuda.synchronize()
+    assert kfold.launches == n0 + 1
+    assert_equal(got, ops.buffer_fold(buf[0], kind=kind), "sends")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["state", "classic", "bp", "rr", "bprr"])
+def test_simulate_on_the_card_matches_the_cpu(sm90, algo):
+    topo = topology.partial_mesh(15, 4)
+    for lat, op in ((GSet(90).lattice, workloads.gset_unique_op(15, 6)),
+                    (GCounter(15).lattice, workloads.gcounter_op(15))):
+        want = simulate(algo, lat, topo, op, 6, 4, device="cpu")
+        for engine in ENGINES:
+            kernels.reset_launches()
+            got = simulate(algo, lat, topo, op, 6, 4, engine=engine)
+            counts = kernels.launch_counts()
+            assert counts["round_step"] == (10 if engine == "mega" else 0)
+            assert counts["round_recv"] == (10 if engine == "fused" else 0)
+            for nm in ("tx", "mem", "cpu", "max_mem_node"):
+                np.testing.assert_array_equal(getattr(got, nm),
+                                              getattr(want, nm))
+            assert torch.equal(got.final_x.cpu(), want.final_x)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_non_contiguous_input(sm90):
+    buf = torch.zeros((64, 5, 15), dtype=torch.int32, device=sm90)
+    with pytest.raises(ValueError):
+        ops.buffer_fold(buf.transpose(0, 2))
+    topo = topology.partial_mesh(15, 4).on(sm90)
+    x = torch.zeros((1, 15, 64), dtype=torch.int32, device=sm90)
+    slots = torch.zeros((1, 15, 5, 64), dtype=torch.int32, device=sm90)
+    with pytest.raises(ValueError):
+        kstep.round_step(x, x, slots.permute(2, 0, 1, 3),
+                         torch.ones((1, 15, 4), dtype=torch.int32, device=sm90),
+                         torch.ones((1, 15), dtype=torch.int32, device=sm90),
+                         topo.nbrs, topo.rev, per_origin=True)

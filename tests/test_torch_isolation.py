@@ -1,0 +1,79 @@
+"""The port stands alone: importing ``repro_torch`` (every module) and
+``chip_smoke.py`` pulls in neither ``jax`` nor the JAX package ``repro``, no
+source file of theirs imports either, and the entry points run on the card
+unless told otherwise — without a card, ``simulate`` with no ``device=``
+raises instead of falling back to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def run_python(code, **env):
+    import os
+
+    full = dict(os.environ, PYTHONPATH=str(REPO / "src"), **env)
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full,
+                          capture_output=True, text=True, timeout=120)
+
+
+def foreign(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_source_imports_jax_or_repro(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not any(foreign(n) for n in names), (path, names)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print('FOREIGN', bad)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    code = (
+        "import torch\n"
+        "from repro_torch.core import GCounter\n"
+        "from repro_torch.sync import simulate, topology, workloads\n"
+        "from repro_torch import kernels\n"
+        "assert not torch.cuda.is_available()\n"
+        "try:\n"
+        "    simulate('bprr', GCounter(3).lattice, topology.ring(3),\n"
+        "             workloads.gcounter_op(3), 2)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n"
+        "r = simulate('bprr', GCounter(3).lattice, topology.ring(3),\n"
+        "             workloads.gcounter_op(3), 2, engine='mega', device='cpu')\n"
+        "print('CPU', r.total_tx, kernels.launch_counts())\n")
+    out = run_python(code, CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stderr
+    assert "RAISED no CUDA device" in out.stdout, out.stdout
+    # the CPU run took the plain versions: no kernel was launched
+    assert "'round_step': 0" in out.stdout, out.stdout
