@@ -7,29 +7,43 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
 ``src/repro_torch/csrc`` on first use. Phases, each of which must pass:
 
 1. environment: torch / CUDA versions and the card's name and power limit;
-2. build: every kernel compiled by nvcc for sm_90a, and its time;
+2. build: every kernel compiled by nvcc for sm_90a (one nvcc per source, in
+   parallel), and its time;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exactly (tolerance 0: integers and bit patterns), over kinds max
-   (int32, bool) and bitor, buffers of K ∈ {0, 1, P+1}, extracts, the
-   masked inbox, emit_stored/emit_cov, active/delivered masks with zeros,
-   N ∈ {9, 15, 40} and U off tile multiples; then each timed (CUDA events, median of 25)
-   beside its plain version and its byte bound at the scale phase's shapes;
-4. paper size: ``simulate`` on the paper's 15-node tree and partial mesh,
-   100 active + 20 quiet rounds, the five δ-family algorithms on all three
-   engines, against every committed total of
-   ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
-   GMap 10% / 100% rows of ``fig8_gmap.json``; engines bit-identical; each
-   kernel engine's launches equal its rounds;
-5. scale: GMap with 4,194,304 keys (K = 10%) and BitGSet with 2^27 bits,
-   per-round metrics against closed-form oracles (27,962 × the GCounter(15)
-   run; the GSet(180) run), ms per round (median, min and max of 5 timed
-   runs), byte bound, peak device memory;
-6. profile: ``torch.profiler`` over three GMap rounds per kernel engine —
-   device time by kernel and the device's busy share (reported, not a gate).
+   (int32, bool) and bitor (words with bit 31 set), buffers of
+   K ∈ {0, 1, P+1}, extracts, the masked inbox, emit_stored/emit_cov,
+   active/delivered masks with zeros (the fault masks), digest blocks
+   be ∈ {8, 32, 64, 128}, P ∈ {1, 4, 8} extraction masks all-zero, all-one
+   and random, N ∈ {9, 15, 40} and U off tile and block multiples; then
+   each timed (CUDA events, median of 25) beside its plain version and its
+   byte bound at the scale phase's shapes;
+4. paper size, each run on all three engines (bit-identical, each kernel
+   engine's launches equal to its rounds):
+   - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
+     GMap 10% / 100% rows of ``fig8_gmap.json``: the five δ-family
+     algorithms on the paper's tree and mesh, 100 active + 20 quiet rounds;
+   - ``fig_digest.json``: the join table (state, bprr, state_driven,
+     digest_driven × divergence 5–75%) and the heal table (partition
+     widths 4–16 ∘ 2% loss);
+   - ``BENCH_fault.json``: the five δ-family algorithms under loss 0/1/10%,
+     a partition and churn, 40 + 80 rounds;
+5. scale, ms per round (median, min and max of 5 timed runs), byte bound,
+   peak device memory, and per-round metrics against oracles:
+   - GMap with 4,194,304 keys (K = 10%) bprr / classic on the mesh and the
+     tree, and BitGSet with 2^27 bits (27,962 × the GCounter(15) run; the
+     GSet(180) run);
+   - (a) a GMap join at 4,194,304 keys (state and state_driven: 4,096 × the
+     GSet(1,024) r25 join of phase 4; digest_driven on all three engines),
+     (b) a BitGSet join at 2^27 bits (digest_driven), (c) GMap bprr under
+     10% loss (fused and mega against the reference engine);
+6. profile: ``torch.profiler`` over three GMap rounds per kernel engine
+   (bprr) and three digest_driven rounds on ``fused`` — device time by
+   kernel and the device's busy share; a profiler failure fails the run.
 
 Phases 4 and 5 are the main path: the launch counters are zeroed before
-and read after them. Prints one ``{"kernels": [...]}`` line, the card's
-``nvidia-smi`` name and power limit, and last
+and read after them. Prints per-phase seconds, one ``{"kernels": [...]}``
+line, the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``; exits non-zero, without that line, if
 anything fails or no card is present. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -54,6 +68,7 @@ REPS = 25
 SCALE_RUNS = 5                   # timed runs of each scale configuration
 SCALE_KEYS = 4_194_304
 BIT_UNIVERSE = 2 ** 27
+DIGEST_BLOCK = 64                # fig_digest.json's block_elems
 
 
 class Checks:
@@ -145,13 +160,15 @@ def kernel_grid(check, dev, log):
     import torch
 
     from repro_torch.kernels import buffer_fold as kf
+    from repro_torch.kernels import digest_blocks as kd
+    from repro_torch.kernels import masked_extract as ke
     from repro_torch.kernels import round_recv as kr
     from repro_torch.kernels import round_step as ks
     from repro_torch.sync import topology
 
     g = torch.Generator(device=dev).manual_seed(0)
-    errs = {"round_step": 0.0, "round_recv": 0.0, "buffer_fold": 0.0}
-    cases = {"round_step": 0, "round_recv": 0, "buffer_fold": 0}
+    errs = {name: 0.0 for name in SOURCES}
+    cases = {name: 0 for name in SOURCES}
     for kind, tname in KINDS:
         dtype = {"int32": torch.int32, "bool": torch.bool,
                  "words": "words"}[tname]
@@ -223,6 +240,36 @@ def kernel_grid(check, dev, log):
                 errs["buffer_fold"] = max(errs["buffer_fold"], e)
                 cases["buffer_fold"] += 1
                 check(e == 0, f"buffer_fold {kind}/{tname} {shape}: err {e}")
+        # digests and extractions: U off the block and 32-element multiples
+        # (1001, 333, 70) and one 16-byte aligned row width (1024)
+        for n, u in ((9, 1001), (15, 333), (40, 70), (15, 1024)):
+            x = rand_state(g, dtype, (n, u), dev)
+            xv = x.view(torch.uint8) if x.dtype == torch.bool else x
+            for be in (8, 32, 64, 128):
+                e = max_abs_err(kd.digest_blocks(x, block_elems=be, kind=kind),
+                                kd.plain(xv, be, kind))
+                errs["digest_blocks"] = max(errs["digest_blocks"], e)
+                cases["digest_blocks"] += 1
+                check(e == 0, f"digest_blocks {kind}/{tname} n={n} u={u} "
+                              f"be={be}: err {e}")
+                nb = -(-u // be)
+                for p in (1, 4, 8):
+                    for fill in ("zeros", "ones", "random"):
+                        masks = torch.randint(
+                            0, 2, (p, n, nb), generator=g, device=dev,
+                            dtype=torch.int32) if fill == "random" else \
+                            torch.full((p, n, nb), int(fill == "ones"),
+                                       dtype=torch.int32, device=dev)
+                        got = ke.masked_extract(x, masks.bool(),
+                                                block_elems=be)
+                        want = ke.plain(xv, masks, be)
+                        if x.dtype == torch.bool:
+                            want = want.view(torch.bool)
+                        e = max_abs_err(got, want)
+                        errs["masked_extract"] = max(errs["masked_extract"], e)
+                        cases["masked_extract"] += 1
+                        check(e == 0, f"masked_extract {kind}/{tname} n={n} "
+                                      f"u={u} be={be} p={p} {fill}: err {e}")
     torch.cuda.synchronize()
     log["kernel_grid"] = {"cases": cases, "max_abs_err": errs}
     print(f"kernel grid: {cases} cases, max_abs_err {errs}", flush=True)
@@ -235,6 +282,8 @@ def kernel_timings(check, dev, log):
     import torch
 
     from repro_torch.kernels import buffer_fold as kf
+    from repro_torch.kernels import digest_blocks as kd
+    from repro_torch.kernels import masked_extract as ke
     from repro_torch.kernels import round_recv as kr
     from repro_torch.kernels import round_step as ks
     from repro_torch.sync import topology
@@ -283,6 +332,38 @@ def kernel_timings(check, dev, log):
     out["buffer_fold"] = (e, ms, plain_ms, *bound((2 * k - 1) * plane,
                                                   2 * k * n * u))
     del buf
+
+    # the digest_driven round of the scale join (a): GMap int32 states, the
+    # 64-wide blocks, the mesh's P = 4 slot masks
+    be = DIGEST_BLOCK
+    nb = u // be
+    x = rand_state(g, torch.int32, (n, u), dev)
+    e = max_abs_err(kd.digest_blocks(x, block_elems=be, kind="max"),
+                    kd.plain(x, be, "max"))
+    ms = time_ms(lambda: kd.digest_blocks(x, block_elems=be, kind="max"))
+    plain_ms = time_ms(lambda: kd.plain(x, be, "max"))
+    out["digest_blocks"] = (e, ms, plain_ms, *bound(plane + 12 * n * nb,
+                                                    14 * n * u))
+    masks = torch.randint(0, 2, (p, n, nb), generator=g, device=dev,
+                          dtype=torch.int32).bool()
+    mk = masks.to(torch.int32)
+    e = max_abs_err(ke.masked_extract(x, masks, block_elems=be),
+                    ke.plain(x, mk, be))
+    ms = time_ms(lambda: ke.masked_extract(x, masks, block_elems=be))
+    plain_ms = time_ms(lambda: ke.plain(x, mk, be))
+    out["masked_extract"] = (e, ms, plain_ms, *bound(
+        (1 + p) * plane + 4 * p * n * nb, p * n * u))
+    # the resync receive: round_recv without the stored extractions
+    d = rand_state(g, torch.int32, (p, n, u), dev)
+    e = max_abs_err(kr.round_recv(d, x, kind="max", emit_stored=False),
+                    kr.plain(d, x, torch.ones((n, p), dtype=torch.int32,
+                                              device=dev), "max", False))
+    ms = time_ms(lambda: kr.round_recv(d, x, kind="max", emit_stored=False))
+    recv_join = (e, ms, *bound((p + 2) * plane, 4 * p * n * u))
+    check(e == 0, f"round_recv join at scale shapes: err {e}")
+    print(f"kernel round_recv (resync join, no stored): {ms:.4f} ms (bound "
+          f"{recv_join[2]:.4f} ms by {recv_join[3]})", flush=True)
+    del x, masks, mk, d
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for name, (e, ms, plain_ms, b_ms, b_by) in out.items():
@@ -292,6 +373,8 @@ def kernel_timings(check, dev, log):
     log["kernel_timings"] = {n_: dict(zip(
         ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"), v))
         for n_, v in out.items()}
+    log["kernel_timings"]["round_recv_join"] = dict(zip(
+        ("max_abs_err", "ms", "bound_ms", "bound_by"), recv_join))
     return out
 
 
@@ -303,21 +386,68 @@ def same_run(a, b) -> bool:
 
     return all(np.array_equal(x, y) for x, y in zip(
         (a.tx, a.mem, a.cpu, a.max_mem_node),
-        (b.tx, b.mem, b.cpu, b.max_mem_node))) and torch.equal(a.final_x,
-                                                                b.final_x)
+        (b.tx, b.mem, b.cpu, b.max_mem_node))) and torch.equal(
+        a.final_x, b.final_x) and ((a.uniform is None and b.uniform is None)
+                                   or np.array_equal(a.uniform, b.uniform))
 
 
 def expected_launches(engine, algo, rounds):
-    return {"round_step": rounds if engine == "mega" else 0,
-            "round_recv": rounds if engine == "fused" else 0,
+    """Launches of one run: ``mega`` one ``round_step`` per δ-family round;
+    ``fused`` one ``round_recv`` (+ ``buffer_fold`` for bp/bprr); the resync
+    modes one ``round_recv`` per round on either kernel engine, and
+    ``digest_driven`` one ``digest_blocks`` + one ``masked_extract``;
+    ``reference`` none."""
+    kern = engine in ("fused", "mega")
+    resync = algo in ("state_driven", "digest_driven")
+    digest = kern and algo == "digest_driven"
+    return {"round_step": rounds if engine == "mega" and not resync else 0,
+            "round_recv": rounds if kern and (resync or engine == "fused")
+            else 0,
             "buffer_fold": rounds if engine == "fused"
-            and algo in ("bp", "bprr") else 0}
+            and algo in ("bp", "bprr") else 0,
+            "digest_blocks": rounds if digest else 0,
+            "masked_extract": rounds if digest else 0}
 
 
-def paper_phase(check, log):
-    from repro_torch import kernels
+class Launches:
+    """Each run's launches against :func:`expected_launches`, and their sum
+    over the main path."""
+
+    def __init__(self, check):
+        self.check = check
+        self.total = {name: 0 for name in SOURCES}
+
+    def run(self, tag, engine, algo, rounds, fn):
+        from repro_torch import kernels
+
+        before = kernels.launch_counts()
+        r = fn()
+        after = kernels.launch_counts()
+        used = {k: after[k] - before[k] for k in after}
+        want = expected_launches(engine, algo, rounds)
+        self.check(used == want, f"{tag}: launches {used}, expected {want}")
+        for k, v in want.items():
+            self.total[k] += v
+        return r
+
+
+def all_engines(check, launches, tag, algo, rounds, fn):
+    """``fn(engine)`` on the three engines; launch-checked, and the kernel
+    engines bit-identical to the reference. Returns the reference run."""
+    from repro_torch.sync import ENGINES
+
+    runs = {e: launches.run(f"{tag} {e}", e, algo, rounds,
+                            lambda e=e: fn(e)) for e in ENGINES}
+    for e in ("fused", "mega"):
+        check(same_run(runs["reference"], runs[e]),
+              f"{tag}: {e} differs from reference")
+    return runs["reference"]
+
+
+def paper_phase(check, launches, log):
     from repro_torch.core import GCounter, GMap, GSet
-    from repro_torch.sync import ALGORITHMS, ENGINES, simulate, topology
+    from repro_torch.sync import (ALGORITHMS, RESYNC_ALGORITHMS, simulate,
+                                  topology)
     from repro_torch.sync import workloads as W
 
     results = REPO / "benchmarks" / "results"
@@ -338,68 +468,185 @@ def paper_phase(check, log):
         for bench, (fig, make) in benches.items():
             lat, op = make()
             for algo in ALGORITHMS:
+                if algo in RESYNC_ALGORITHMS:
+                    continue
                 row = fig[f"{bench}_{topo_name}"]["raw"][algo]
-                runs = {}
-                for engine in ENGINES:
-                    before = kernels.launch_counts()
-                    r = simulate(algo, lat, topo, op, 100, 20, engine=engine)
-                    after = kernels.launch_counts()
-                    used = {k: after[k] - before[k] for k in after}
-                    tag = f"paper {bench}_{topo_name} {algo} {engine}"
-                    check(used == expected_launches(engine, algo, 120),
-                          f"{tag}: launches {used}")
-                    peak_ok = True
-                    if "mem_max_node" in row:
-                        peak_ok = int(r.max_mem_node.max()) == row["mem_max_node"]
-                        peak_checked += 1
-                    else:
-                        peak_lacking += 1
-                    check(r.total_tx == row["tx"] and r.total_cpu == row["cpu"]
-                          and r.avg_mem == row["mem_avg"] and peak_ok,
-                          f"{tag}: tx {r.total_tx} vs {row['tx']}, cpu "
-                          f"{r.total_cpu} vs {row['cpu']}, peak node "
-                          f"{int(r.max_mem_node.max())} vs "
-                          f"{row.get('mem_max_node')}")
-                    runs[engine] = r
-                    cells += 1
-                for engine in ("fused", "mega"):
-                    check(same_run(runs["reference"], runs[engine]),
-                          f"paper {bench}_{topo_name} {algo}: {engine} differs "
-                          f"from reference")
+                tag = f"paper {bench}_{topo_name} {algo}"
+                r = all_engines(check, launches, tag, algo, 120,
+                                lambda e: simulate(algo, lat, topo, op, 100,
+                                                   20, engine=e))
+                peak_ok = True
+                if "mem_max_node" in row:
+                    peak_ok = int(r.max_mem_node.max()) == row["mem_max_node"]
+                    peak_checked += 1
+                else:
+                    peak_lacking += 1
+                check(r.total_tx == row["tx"] and r.total_cpu == row["cpu"]
+                      and r.avg_mem == row["mem_avg"] and peak_ok,
+                      f"{tag}: tx {r.total_tx} vs {row['tx']}, cpu "
+                      f"{r.total_cpu} vs {row['cpu']}, peak node "
+                      f"{int(r.max_mem_node.max())} vs "
+                      f"{row.get('mem_max_node')}")
+                cells += 3
     wall = time.perf_counter() - t0
     print(f"paper size: {cells} runs against fig7/fig8, engines bit-identical "
-          f"({wall:.1f} s); mem_max_node checked in {peak_checked} runs, "
-          f"{peak_lacking} runs' rows lack it", flush=True)
+          f"({wall:.1f} s); mem_max_node checked in {peak_checked} cells, "
+          f"{peak_lacking} cells' rows lack it", flush=True)
     log["paper"] = {"runs": cells, "wall_s": wall,
                     "mem_max_node_checked": peak_checked,
                     "mem_max_node_lacking": peak_lacking}
 
 
-def scale_run(simulate_fn, rounds):
-    """SCALE_RUNS runs, each timed on the host clock around a synchronised
-    device, after a one-round run of the same configuration (which builds
-    the op's tables and grows the allocator's pool). Returns the last
-    result, ms per round as (median, min, max) over the runs, peak device
-    memory and each timed run's kernel launches."""
+def no_op(x, t):
+    """The join scenarios' op stream: sync only."""
     import torch
 
-    from repro_torch import kernels
+    return torch.zeros_like(x)
 
-    simulate_fn(1, 0)
+
+def join_x0(nodes, universe, ratio, tile=None, value=1, dtype=None):
+    """The fig_digest join start: every node but the joiner (node 0) holds
+    the first ``ratio`` of the universe — or of every ``tile``-wide tile —
+    at ``value`` (bool states by default)."""
+    import torch
+
+    dtype = dtype or torch.bool
+    tile = tile or universe
+    held = (torch.arange(universe) % tile) < int(round(ratio * tile))
+    x0 = torch.zeros((nodes, universe), dtype=dtype)
+    x0[1:] = held if dtype == torch.bool else held.to(dtype) * value
+    return x0
+
+
+def digest_phase(check, launches, log):
+    """fig_digest.json's join and heal tables on all three engines."""
+    import numpy as np
+
+    from repro_torch.core import GSet
+    from repro_torch.sync import DigestSpec, FaultSchedule, simulate, topology
+    from repro_torch.sync import workloads as W
+
+    fig = json.loads((REPO / "benchmarks" / "results" /
+                      "fig_digest.json").read_text())
+    topo = topology.partial_mesh(fig["nodes"], 4)
+    n, u, spec = topo.num_nodes, fig["universe"], DigestSpec(fig["block_elems"])
+    t0 = time.perf_counter()
+    runs, join_r25 = 0, {}
+    for algo, rows in fig["join"].items():
+        for key, row in rows.items():
+            x0 = join_x0(n, u, row["divergence"])
+            r = all_engines(
+                check, launches, f"join {algo} {key}", algo, fig["rounds"],
+                lambda e: simulate(algo, GSet(u).lattice, topo, no_op, 0,
+                                   fig["rounds"], x0=x0, engine=e,
+                                   track_convergence=True, digest=spec))
+            conv = r.convergence_round()
+            tx_conv = int(r.tx[: conv + 1].sum()) if conv >= 0 else None
+            got = (r.total_tx, conv >= 0, conv, tx_conv)
+            want = (row["tx_window"], row["converged"], row["conv_round"],
+                    row["tx_to_conv"])
+            check(got == want, f"join {algo} {key}: (tx_window, converged, "
+                               f"conv_round, tx_to_conv) {got} vs {want}")
+            if key == "r25":
+                join_r25[algo] = r
+            runs += 3
+    events = fig["events"]
+    groups = (np.arange(n) >= n // 2).astype(np.int32)
+    for algo, rows in fig["heal"].items():
+        for key, row in rows.items():
+            w = row["partition_rounds"]
+            sched = FaultSchedule.partition(topo, events, 0, w, groups) \
+                .compose(FaultSchedule.bernoulli(topo, events, 0.02, seed=11))
+            r = all_engines(
+                check, launches, f"heal {algo} {key}", algo, 3 * events,
+                lambda e: simulate(algo, GSet(n * events).lattice, topo,
+                                   W.gset_unique_op(n, events), events,
+                                   2 * events, faults=sched, engine=e,
+                                   digest=spec))
+            conv = r.convergence_round()
+            got = (r.total_tx, int(r.tx[w:].sum()), conv - events + 1,
+                   conv >= 0)
+            want = (row["tx_total"], row["tx_post_heal"], row["ttc_rounds"],
+                    row["converged"])
+            check(got == want, f"heal {algo} {key}: (tx_total, tx_post_heal, "
+                               f"ttc_rounds, converged) {got} vs {want}")
+            runs += 3
+    wall = time.perf_counter() - t0
+    print(f"fig_digest: {runs} runs (join + heal) reproduced, engines "
+          f"bit-identical ({wall:.1f} s)", flush=True)
+    log["fig_digest"] = {"runs": runs, "wall_s": wall}
+    return join_r25
+
+
+def fault_phase(check, launches, log):
+    """BENCH_fault.json: the δ-family under loss, a partition and churn."""
+    import numpy as np
+
+    from repro_torch.core import GSet
+    from repro_torch.sync import FaultSchedule, simulate, topology
+    from repro_torch.sync import workloads as W
+
+    bench = json.loads((REPO / "benchmarks" / "results" /
+                        "BENCH_fault.json").read_text())
+    events, quiet = bench["events"], bench["quiet"]
+    topo = topology.partial_mesh(bench["nodes"], 4)
+    n = topo.num_nodes
+    lossy = events + quiet // 4
+    groups = (np.arange(n) >= n // 2).astype(np.int32)
+    scheds = {
+        "loss0": FaultSchedule.none(topo, events),
+        "loss1": FaultSchedule.bernoulli(topo, lossy, 0.01, seed=7),
+        "loss10": FaultSchedule.bernoulli(topo, lossy, 0.10, seed=7),
+        "partition": FaultSchedule.partition(
+            topo, events, events // 4, (3 * events) // 4, groups),
+        "churn": FaultSchedule.churn(
+            topo, events, [(1, events // 4, (3 * events) // 4),
+                           (n - 2, events // 2, events - 1)]),
+    }
+    lat, op = GSet(n * events).lattice, W.gset_unique_op(n, events)
+    t0 = time.perf_counter()
+    runs = 0
+    for scenario, cell in bench["cells"].items():
+        for algo, row in cell["raw"].items():
+            r = all_engines(
+                check, launches, f"fault {scenario} {algo}", algo,
+                events + quiet,
+                lambda e: simulate(algo, lat, topo, op, events, quiet,
+                                   faults=scheds[scenario], engine=e))
+            conv = r.convergence_round()
+            got = (r.total_tx, r.avg_mem, conv, conv - events + 1, conv >= 0)
+            want = (row["tx"], row["mem_avg"], row["conv_round"],
+                    row["ttc_rounds"], row["converged"])
+            check(got == want, f"fault {scenario} {algo}: (tx, mem_avg, "
+                               f"conv_round, ttc_rounds, converged) {got} vs "
+                               f"{want}")
+            runs += 3
+    wall = time.perf_counter() - t0
+    print(f"BENCH_fault: {runs} runs reproduced, engines bit-identical "
+          f"({wall:.1f} s)", flush=True)
+    log["bench_fault"] = {"runs": runs, "wall_s": wall}
+
+
+def scale_run(launches, tag, engine, algo, rounds, simulate_fn):
+    """SCALE_RUNS runs, each timed on the host clock around a synchronised
+    device, after a one-round run of the same configuration (which builds
+    the op's tables and grows the allocator's pool); every run's launches
+    are checked. Returns the last result, ms per round as (median, min,
+    max) over the runs and the peak device memory."""
+    import torch
+
+    launches.run(f"{tag} warm-up", engine, algo, 1, lambda: simulate_fn(1, 0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, used, r = [], [], None
+    times, r = [], None
     for _ in range(SCALE_RUNS):
         r = None                           # one result alive at a time
-        before = kernels.launch_counts()
         t0 = time.perf_counter()
-        r = simulate_fn()
+        r = launches.run(tag, engine, algo, rounds, simulate_fn)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / rounds)
-        after = kernels.launch_counts()
-        used.append({n: after[n] - before[n] for n in after})
     return (r, (statistics.median(times), min(times), max(times)),
-            torch.cuda.max_memory_allocated(), used)
+            torch.cuda.max_memory_allocated())
 
 
 def scale_row(workload, topo, algo, engine, ms, b_ms, peak, r):
@@ -418,12 +665,16 @@ def print_scale(tag, ms, b_ms, peak, r):
           f"{r.total_tx}", flush=True)
 
 
-def scale_phase(check, log):
+def ms_bound(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def scale_phase(check, launches, log, join_r25):
     import numpy as np
     import torch
 
     from repro_torch.core import BitGSet, GCounter, GMap, GSet
-    from repro_torch.sync import simulate, topology
+    from repro_torch.sync import DigestSpec, FaultSchedule, simulate, topology
     from repro_torch.sync import workloads as W
 
     active, quiet = 12, 8
@@ -442,16 +693,15 @@ def scale_phase(check, log):
             oracle = simulate(algo, GCounter(15).lattice, topo,
                               W.gcounter_op(15), active, quiet)
             k = topo.max_degree + 1 if algo == "bprr" else 1
-            b_ms = (2 * k + 3) * plane / HBM_BYTES_PER_S * 1e3
+            b_ms = ms_bound((2 * k + 3) * plane)
             runs = {}
             for engine in ("mega", "fused"):
-                r, ms, peak, used = scale_run(
+                tag = f"scale gmap{SCALE_KEYS} {topo_name} {algo} {engine}"
+                r, ms, peak = scale_run(
+                    launches, tag, engine, algo, rounds,
                     lambda a=active, q=quiet: simulate(
                         algo, GMap(SCALE_KEYS).lattice, topo, op, a, q,
-                        engine=engine), rounds)
-                tag = f"scale gmap{SCALE_KEYS} {topo_name} {algo} {engine}"
-                check(all(u == expected_launches(engine, algo, rounds)
-                          for u in used), f"{tag}: launches {used}")
+                        engine=engine))
                 for nm in ("tx", "mem", "cpu", "max_mem_node"):
                     check(np.array_equal(getattr(r, nm),
                                          per_node * getattr(oracle, nm)),
@@ -471,15 +721,15 @@ def scale_phase(check, log):
     oracle = simulate("bprr", GSet(180).lattice, topo,
                       W.gset_unique_op(15, 12), active, quiet)
     op = W.bitgset_unique_op(15, 12, stride)
-    b_ms = 13 * 15 * (BIT_UNIVERSE // 32) * 4 / HBM_BYTES_PER_S * 1e3
+    words = BIT_UNIVERSE // 32
+    b_ms = ms_bound(13 * 15 * words * 4)
     runs = {}
     for engine in ("mega", "fused"):
-        r, ms, peak, used = scale_run(lambda a=active, q=quiet: simulate(
-            "bprr", BitGSet(BIT_UNIVERSE).lattice, topo, op, a, q,
-            engine=engine), rounds)
         tag = f"scale bitgset2^27 mesh bprr {engine}"
-        check(all(u == expected_launches(engine, "bprr", rounds)
-                  for u in used), f"{tag}: launches {used}")
+        r, ms, peak = scale_run(launches, tag, engine, "bprr", rounds,
+                                lambda a=active, q=quiet: simulate(
+                                    "bprr", BitGSet(BIT_UNIVERSE).lattice,
+                                    topo, op, a, q, engine=engine))
         for nm in ("tx", "mem", "cpu", "max_mem_node"):
             check(np.array_equal(getattr(r, nm), getattr(oracle, nm)),
                   f"{tag}: {nm} != GSet(180)")
@@ -488,20 +738,161 @@ def scale_phase(check, log):
         runs[engine] = r
         print_scale(tag, ms, b_ms, peak, r)
     check(same_run(runs["mega"], runs["fused"]), "scale bitgset: engines differ")
+    del runs, r
+    torch.cuda.empty_cache()
+
+    # (a) GMap join: in every 1,024-key tile the donors hold keys [0, 256)
+    # at version 1 and the joiner (node 0) holds nothing; 12 sync rounds.
+    # Per round, per kernel: digest 12 B/block + a read of x, extraction
+    # (1 + P) planes + masks, the receive fold (P + 2) planes; state's
+    # receive (P + 2) planes (mega: δ, x in, x' out).
+    p, jr, tiles = topo.max_degree, 12, SCALE_KEYS // 1024
+    spec = DigestSpec(DIGEST_BLOCK)
+    nb = SCALE_KEYS // DIGEST_BLOCK
+    recv_b = (p + 2) * plane
+    dig_b = plane + 12 * 15 * nb + (1 + p) * plane + 4 * p * 15 * nb + recv_b
+    tile_x = torch.where((torch.arange(SCALE_KEYS, device="cuda") % 1024)
+                         < 256, 1, 0).to(torch.int32).expand(15, SCALE_KEYS)
+    x0 = join_x0(15, SCALE_KEYS, 0.25, tile=1024, value=1, dtype=torch.int32)
+    lat = GMap(SCALE_KEYS).lattice
+    plan = (("state", ("mega", "fused"), {"mega": 3 * plane,
+                                          "fused": recv_b}),
+            ("state_driven", ("mega", "fused"), {"mega": recv_b,
+                                                 "fused": recv_b}),
+            ("digest_driven", ("mega", "fused", "reference"),
+             {"mega": dig_b, "fused": dig_b, "reference": dig_b}))
+    for algo, engines, bounds in plan:
+        runs = {}
+        for engine in engines:
+            tag = f"scale join gmap{SCALE_KEYS} {algo} {engine}"
+            r, ms, peak = scale_run(
+                launches, tag, engine, algo, jr,
+                lambda a=0, q=jr: simulate(algo, lat, topo, no_op, a, q,
+                                           x0=x0, engine=engine,
+                                           track_convergence=True,
+                                           digest=spec))
+            check(torch.equal(r.final_x, tile_x), f"{tag}: final state")
+            if algo != "digest_driven":     # the tiles of the GSet join (a
+                o = join_r25[algo]          # digest's Merkle descent is not
+                for nm in ("tx", "mem", "cpu", "max_mem_node"):  # additive)
+                    check(np.array_equal(getattr(r, nm),
+                                         tiles * getattr(o, nm)[:jr]),
+                          f"{tag}: {nm} != {tiles} x GSet(1,024) r25 join")
+                check(np.array_equal(r.uniform, o.uniform[:jr]),
+                      f"{tag}: convergence differs from the GSet join")
+            rows.append(scale_row(f"join_gmap{SCALE_KEYS}_r25", topo.name,
+                                  algo, engine, ms, ms_bound(bounds[engine]),
+                                  peak, r))
+            runs[engine] = r
+            print_scale(tag, ms, ms_bound(bounds[engine]), peak, r)
+        for engine in engines[1:]:
+            check(same_run(runs[engines[0]], runs[engine]),
+                  f"scale join gmap {algo}: {engine} differs from "
+                  f"{engines[0]}")
+        del runs, r
+        torch.cuda.empty_cache()
+    del x0, tile_x
+
+    # (b) BitGSet join, 2^27 bits: the donors hold words [0, 256) of every
+    # 1,024-word tile with all 32 bits set (bit 31 included)
+    bit_x = torch.where((torch.arange(words, device="cuda") % 1024) < 256,
+                        -1, 0).to(torch.int32).expand(15, words)
+    x0 = join_x0(15, words, 0.25, tile=1024, value=-1, dtype=torch.int32)
+    plane_w = 15 * words * 4
+    b_ms = ms_bound(plane_w + 12 * 15 * (words // DIGEST_BLOCK)
+                    + (1 + p) * plane_w + 4 * p * 15 * (words // DIGEST_BLOCK)
+                    + (p + 2) * plane_w)
+    runs = {}
+    for engine in ("mega", "fused", "reference"):
+        tag = f"scale join bitgset2^27 digest_driven {engine}"
+        r, ms, peak = scale_run(
+            launches, tag, engine, "digest_driven", jr,
+            lambda a=0, q=jr: simulate(
+                "digest_driven", BitGSet(BIT_UNIVERSE).lattice, topo,
+                no_op, a, q, x0=x0, engine=engine, track_convergence=True,
+                digest=spec))
+        check(torch.equal(r.final_x, bit_x), f"{tag}: final state")
+        check(r.convergence_round() >= 0, f"{tag}: did not converge")
+        rows.append(scale_row("join_bitgset2^27_r25", topo.name,
+                              "digest_driven", engine, ms, b_ms, peak, r))
+        runs[engine] = r
+        print_scale(tag, ms, b_ms, peak, r)
+    for engine in ("fused", "reference"):
+        check(same_run(runs["mega"], runs[engine]),
+              f"scale join bitgset: {engine} differs from mega")
+    del runs, r, x0, bit_x
+    torch.cuda.empty_cache()
+
+    # (c) GMap bprr under 10% loss in the active rounds (seed 7): the kernel
+    # engines against the reference engine, and the fault-free final state
+    sched = FaultSchedule.bernoulli(topo, active, 0.10, seed=7)
+    op = W.gmap_block_op(15, SCALE_KEYS, 10)
+    b_ms = ms_bound(13 * plane)
+    runs = {}
+    for engine in ("mega", "fused", "reference"):
+        tag = f"scale gmap{SCALE_KEYS} mesh bprr loss10 {engine}"
+        r, ms, peak = scale_run(
+            launches, tag, engine, "bprr", rounds,
+            lambda a=active, q=quiet: simulate(
+                "bprr", GMap(SCALE_KEYS).lattice, topo, op, a, q,
+                faults=sched, engine=engine))
+        check(torch.equal(r.final_x, want_x), f"{tag}: final state")
+        rows.append(scale_row(f"gmap{SCALE_KEYS}_k10_loss10", topo.name,
+                              "bprr", engine, ms, b_ms, peak, r))
+        runs[engine] = r
+        print_scale(tag, ms, b_ms, peak, r)
+    for engine in ("mega", "fused"):
+        check(same_run(runs["reference"], runs[engine]),
+              f"scale gmap bprr loss10: {engine} differs from reference")
     log["scale"] = rows
 
 
-def profile_phase(log):
-    """Where a round's time goes: ``torch.profiler`` over 3 active GMap
-    rounds (4,194,304 keys, mesh, bprr) per kernel engine — device time by
-    kernel, and the device's busy share of the profiled wall time. Informs
-    PERF.md; a profiler failure is reported, not fatal."""
+def profile_rounds(check, tag, run):
+    """``torch.profiler`` over one call of ``run`` (after a warm-up call):
+    device time by kernel, and the device's busy share of the wall time.
+    A profiler failure, or a window with no device time, fails a check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    try:
+        run()                                              # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernels only: an aten op also reports its kernels' time
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    except Exception as exc:  # noqa: BLE001 - becomes a failed check
+        check(False, f"profile {tag}: {exc!r}")
+        return {"error": repr(exc)}
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, f"profile {tag}: no device time was recorded")
+    print(f"profile {tag}: 3 rounds {wall_ms:.2f} ms wall, {device_ms:.2f} "
+          f"ms on the device (busy {device_ms / wall_ms:.1%})", flush=True)
+    for k, t, c in rows[:6]:
+        print(f"    {t:9.3f} ms  x{c:<4d} {k[:80]}", flush=True)
+    return {"wall_ms_3_rounds": wall_ms, "device_ms_3_rounds": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "top": [{"kernel": k[:90], "ms": t, "calls": c}
+                    for k, t, c in rows[:10]]}
+
+
+def profile_phase(check, log):
+    """Where a round's time goes: 3 active GMap rounds (4,194,304 keys,
+    mesh, bprr) per kernel engine, and 3 digest_driven rounds of the GMap
+    join (a) on ``fused``. Informs PERF.md."""
+    import torch
+
     from repro_torch.core import GMap
-    from repro_torch.sync import simulate, topology
+    from repro_torch.sync import DigestSpec, simulate, topology
     from repro_torch.sync import workloads as W
 
     topo = topology.partial_mesh(15, 4)
@@ -509,36 +900,15 @@ def profile_phase(log):
     lat = GMap(SCALE_KEYS).lattice
     out = {}
     for engine in ("mega", "fused"):
-        try:
-            simulate("bprr", lat, topo, op, 2, 0, engine=engine)   # warm-up
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                simulate("bprr", lat, topo, op, 3, 0, engine=engine)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            # kernels only: an aten op also reports its kernels' time
-            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-        except Exception as exc:  # noqa: BLE001 - report, keep the smoke going
-            print(f"profile {engine}: failed: {exc!r}", flush=True)
-            out[engine] = {"error": repr(exc)}
-            continue
-        rows.sort(key=lambda r: -r[1])
-        device_ms = sum(r[1] for r in rows)
-        out[engine] = {"wall_ms_3_rounds": wall_ms,
-                       "device_ms_3_rounds": device_ms,
-                       "busy_share": device_ms / wall_ms if wall_ms else None,
-                       "top": [{"kernel": k[:90], "ms": t, "calls": c}
-                               for k, t, c in rows[:10]]}
-        print(f"profile gmap mesh bprr {engine}: 3 rounds {wall_ms:.2f} ms "
-              f"wall, {device_ms:.2f} ms on the device (busy "
-              f"{device_ms / wall_ms:.1%})", flush=True)
-        for k, t, c in rows[:6]:
-            print(f"    {t:9.3f} ms  x{c:<4d} {k[:80]}", flush=True)
+        out[engine] = profile_rounds(
+            check, f"gmap mesh bprr {engine}",
+            lambda e=engine: simulate("bprr", lat, topo, op, 3, 0, engine=e))
+    x0 = join_x0(15, SCALE_KEYS, 0.25, tile=1024, value=1,
+                 dtype=torch.int32).cuda()
+    out["digest_driven_fused"] = profile_rounds(
+        check, "gmap join digest_driven fused",
+        lambda: simulate("digest_driven", lat, topo, no_op, 0, 3, x0=x0,
+                         engine="fused", digest=DigestSpec(DIGEST_BLOCK)))
     log["profile"] = out
 
 
@@ -551,6 +921,10 @@ SOURCES = {
                    "src/repro/kernels/round_recv.py:126"),
     "buffer_fold": ("src/repro_torch/csrc/buffer_fold.cu",
                     "src/repro/kernels/buffer_fold.py:59"),
+    "digest_blocks": ("src/repro_torch/csrc/digest_blocks.cu",
+                      "src/repro/kernels/digest.py:73"),
+    "masked_extract": ("src/repro_torch/csrc/masked_extract.cu",
+                       "src/repro/kernels/digest.py:125"),
 }
 
 
@@ -589,18 +963,32 @@ def main() -> int:
               f"{max(regs, default=0)} registers, spill stores "
               f"{max(map(int, spills), default=0)} bytes", flush=True)
 
+    phase_s = log["phase_s"] = {"build": log["build_s"]}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     # 3. kernels against their plain versions
-    grid_errs = kernel_grid(check, dev, log)
-    timings = kernel_timings(check, dev, log)
+    grid_errs = timed("kernel_grid", kernel_grid, check, dev, log)
+    timings = timed("kernel_timings", kernel_timings, check, dev, log)
 
     # 4 + 5. the main path, with the launch counters zeroed around it
     kernels.reset_launches()
-    paper_phase(check, log)
-    scale_phase(check, log)
+    expect = Launches(check)
+    timed("paper", paper_phase, check, expect, log)
+    join_r25 = timed("fig_digest", digest_phase, check, expect, log)
+    timed("bench_fault", fault_phase, check, expect, log)
+    timed("scale", scale_phase, check, expect, log, join_r25)
     launches = kernels.launch_counts()
+    check(launches == expect.total, f"main-path launches {launches}, the "
+                                    f"runs' rounds give {expect.total}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
-    profile_phase(log)
+    timed("profile", profile_phase, check, log)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

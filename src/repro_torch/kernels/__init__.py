@@ -1,10 +1,12 @@
 """The port's hand-written CUDA kernels (``csrc/``), each with its plain
 PyTorch version and a launch counter."""
 
-from repro_torch.kernels import buffer_fold, round_recv, round_step
+from repro_torch.kernels import (buffer_fold, digest_blocks, masked_extract,
+                                 round_recv, round_step)
 
 KERNELS = {"round_step": round_step, "round_recv": round_recv,
-           "buffer_fold": buffer_fold}
+           "buffer_fold": buffer_fold, "digest_blocks": digest_blocks,
+           "masked_extract": masked_extract}
 
 
 def reset_launches() -> None:

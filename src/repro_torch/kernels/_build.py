@@ -7,7 +7,7 @@ at the root of the checkout. The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once. All
 stale sources compile in parallel, one ``nvcc`` each.
 
-Besides the build, this module holds what the three kernel wrappers share:
+Besides the build, this module holds what the kernel wrappers share:
 the element kinds a kernel takes, the checks made before a launch, and the
 elementwise arithmetic of the plain PyTorch versions.
 """
@@ -28,7 +28,8 @@ from repro_torch.core.types import popcount32
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("buffer_fold", "round_recv", "round_step")
+SOURCES = ("buffer_fold", "digest_blocks", "masked_extract", "round_recv",
+           "round_step")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,18 @@
-"""Synchronization algorithms (paper §IV, Algorithms 1 & 2), PyTorch
-counterpart of the δ-family part of ``repro.sync.algorithms``:
+"""Synchronization algorithms (paper §IV, Algorithms 1 & 2, and the
+anti-entropy resync modes), PyTorch counterpart of
+``repro.sync.algorithms``:
 
 * ``state``    — state-based full-state sync (baseline)
 * ``classic``  — classic delta-based, Algorithm 1
 * ``bp``       — + avoid back-propagation of δ-groups (origin tags)
 * ``rr``       — + remove redundant state in received δ-groups (Δ-extract)
 * ``bprr``     — Algorithm 2 (BP + RR), the paper's contribution
+* ``state_driven``  — per edge, the lower id ships its full state and the
+  other end replies with the optimal Δ(its state, received state)
+* ``digest_driven`` — every node ships a block digest of its state and,
+  per neighbour, the blocks whose summaries disagree with that
+  neighbour's last digest (``sync/digest.py``); digest messages are priced
+  as Merkle descents
 
 Buffers: entries with equal origin are kept joined in an origin-indexed slot
 of a slot-major ``B[P+1, N, U]`` (slot P = local ops) for the BP flavours,
@@ -16,6 +23,12 @@ slots, by prefix/suffix joins (``loo="prefix"``) or the direct O(P²) fold
 ``n`` is ``d_all[q, n]``. The JAX package keeps the node axis first;
 ``repro_torch.convert`` swaps the two axes of a carried buffer.
 
+Faults (``sync/faults.py``): ``round_step`` optionally takes one round's
+``RoundFaults``. Down nodes send and receive nothing; a node whose sends
+were not all delivered *retains* its δ-buffer instead of clearing it. The
+resync modes retain nothing: requests repeat every round, so a lost message
+only delays the next handshake.
+
 A round is one call of :meth:`SyncAlgorithm.round_step`; it never reads a
 device value on the host, so a loop of rounds only queues device work.
 """
@@ -23,17 +36,22 @@ device value on the host, so a loop of rounds only queues device work.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.lattice import Lattice
+from repro_torch.sync import digest as D
 from repro_torch.sync import engine as engine_mod
 from repro_torch.sync import treeops as T
+from repro_torch.sync.digest import DigestSpec
 from repro_torch.sync.topology import Topology
 
-ALGORITHMS = ("state", "classic", "bp", "rr", "bprr")
+ALGORITHMS = ("state", "classic", "bp", "rr", "bprr", "state_driven",
+              "digest_driven")
+# The anti-entropy modes; they take the resync round instead of the
+# Algorithm 1/2 δ-buffer round.
+RESYNC_ALGORITHMS = ("state_driven", "digest_driven")
 
 
 class RoundMetrics(NamedTuple):
@@ -45,13 +63,15 @@ class RoundMetrics(NamedTuple):
 
 class AlgoCarry(NamedTuple):
     x: torch.Tensor                # [N, U] lattice states
-    buf: Optional[torch.Tensor]    # None | [N, U] | [P+1, N, U]
+    buf: Optional[torch.Tensor]    # None | [N, U] | [P+1, N, U] | [P, N, U]
     buf_elems: torch.Tensor        # int32 [N] buffered entry elements
+    aux: Optional[tuple] = None    # digest_driven: (int32 [P, N, nB, 3]
+                                   # remote digests, bool [P, N] have-one)
 
 
 @dataclasses.dataclass(frozen=True)
 class SyncAlgorithm:
-    """One δ-family algorithm over a topology whose tables lie on the
+    """One sync algorithm over a topology whose tables lie on the
     device the simulation runs on."""
 
     name: str
@@ -60,6 +80,8 @@ class SyncAlgorithm:
     loo: str = "prefix"          # leave-one-out strategy of the BP sends
     engine: str = "reference"    # "reference" | "fused" | "mega"
     metric_dtype: torch.dtype = torch.int64   # round-metric accumulators
+    digest: Optional[DigestSpec] = None       # digest_driven's geometry
+                                              # (None = the default spec)
 
     def __post_init__(self):
         if self.name not in ALGORITHMS:
@@ -78,8 +100,18 @@ class SyncAlgorithm:
         return self.topo.nbrs.device
 
     @property
+    def is_resync(self) -> bool:
+        return self.name in RESYNC_ALGORITHMS
+
+    @property
+    def digest_spec(self) -> DigestSpec:
+        return self.digest if self.digest is not None else DigestSpec()
+
+    @property
     def has_buffer(self) -> bool:
-        return self.name != "state"
+        # digest_driven holds digests (in aux); state_driven's buffer holds
+        # the per-neighbour Δ-responses awaiting their send round
+        return self.name not in ("state", "digest_driven")
 
     @property
     def per_origin(self) -> bool:
@@ -89,16 +121,23 @@ class SyncAlgorithm:
     def extracts(self) -> bool:
         return self.name in ("rr", "bprr")
 
-    @functools.cached_property
-    def active(self) -> torch.Tensor:
-        """int32 [1, N, P] receive mask of the kernels (topology padding)."""
-        return self.topo.mask.to(torch.int32)[None].contiguous()
+    def send_live(self, faults) -> torch.Tensor:
+        """bool [N, P]: the sends an up node puts on the wire."""
+        mask = self.topo.mask
+        return mask if faults is None else mask & faults.up[:, None]
 
-    @functools.cached_property
-    def delivered(self) -> torch.Tensor:
-        """int32 [1, N] ack mask of the kernels: every send is delivered."""
-        return torch.ones((1, self.topo.num_nodes), dtype=torch.int32,
-                          device=self.device)
+    def recv_valid(self, faults) -> torch.Tensor:
+        """bool [N, P]: the receive slots that take a message this round
+        (topology padding ∧ delivery)."""
+        mask = self.topo.mask
+        return mask if faults is None else mask & faults.recv_ok
+
+    def delivered(self, faults) -> Optional[torch.Tensor]:
+        """bool [N]: nodes whose sends were all delivered and which are up
+        (their buffers clear); None without faults (every buffer clears)."""
+        if faults is None:
+            return None
+        return torch.all(faults.send_ok | ~self.topo.mask, dim=-1) & faults.up
 
     @staticmethod
     def msum(v: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
@@ -111,14 +150,24 @@ class SyncAlgorithm:
         n, p = self.topo.num_nodes, self.topo.max_degree
         bot = self.lattice.bottom(self.device)
         x = T.bcast(bot, (n,)) if x0 is None else x0.to(self.device)
-        if not self.has_buffer:
+        aux = None
+        if self.name == "digest_driven":
+            nb = self.digest_spec.num_blocks(D.state_universe(bot))
+            buf = None
+            # per-slot last-received remote digests + have-one flags
+            aux = (torch.zeros((p, n, nb, D.CHANNELS), dtype=torch.int32,
+                               device=self.device),
+                   torch.zeros((p, n), dtype=torch.bool, device=self.device))
+        elif self.name == "state_driven":
+            buf = T.bcast(bot, (p, n))          # destination-indexed resp
+        elif not self.has_buffer:
             buf = None
         elif self.per_origin:
             buf = T.bcast(bot, (p + 1, n))
         else:
             buf = T.bcast(bot, (n,))
         return AlgoCarry(x=x, buf=buf, buf_elems=torch.zeros(
-            n, dtype=torch.int32, device=self.device))
+            n, dtype=torch.int32, device=self.device), aux=aux)
 
     # -- sends ---------------------------------------------------------------
 
@@ -159,15 +208,19 @@ class SyncAlgorithm:
 
     # -- one synchronous round -----------------------------------------------
 
-    def round_step(self, carry: AlgoCarry, op_delta):
-        """One synchronous round; returns ``(carry, RoundMetrics)``."""
-        lat, topo, acc = self.lattice, self.topo, self.metric_dtype
-        p = topo.max_degree
-        x, buf, buf_elems = carry
+    def round_step(self, carry: AlgoCarry, op_delta, faults=None):
+        """One synchronous round; ``faults`` is one round's
+        ``faults.RoundFaults`` (None: fault-free). Returns
+        ``(carry, RoundMetrics)``."""
+        if self.is_resync:
+            return self._resync_round(carry, op_delta, faults)
+        lat, acc = self.lattice, self.metric_dtype
+        p = self.topo.max_degree
+        x, buf, buf_elems, _ = carry
 
         if self.resolved_engine == "mega":
             x, buf, buf_elems, tx, cpu, state_elems = engine_mod.mega_round(
-                self, x, buf, buf_elems, op_delta)
+                self, x, buf, buf_elems, op_delta, faults)
             return AlgoCarry(x, buf, buf_elems), self._metrics(
                 tx, cpu, state_elems, buf_elems)
 
@@ -189,24 +242,154 @@ class SyncAlgorithm:
             d_all = self._loo_sends(buf)
         else:
             d_all = self._bcast_sends(buf)
-        tx = self.msum(lat.size(d_all) * topo.mask.T, acc)
+        # tx counts what an up sender puts on the wire, delivered or not
+        tx = self.msum(lat.size(d_all) * self.send_live(faults).T, acc)
         cpu = cpu + tx  # serialization cost ∝ elements sent
 
         # (3) clear buffer                                 [Alg 2, line 13]
+        # Under faults a node whose sends were not all delivered RETAINS its
+        # buffer (ack-gated eviction) and re-sends it next round.
         if self.has_buffer:
-            buf = torch.zeros_like(buf)
-            buf_elems = torch.zeros_like(buf_elems)
+            dlv = self.delivered(faults)
+            if dlv is None:
+                buf = torch.zeros_like(buf)
+                buf_elems = torch.zeros_like(buf_elems)
+            else:
+                buf = torch.where(dlv[:, None], buf.new_zeros(()), buf)
+                buf_elems = torch.where(dlv, 0, buf_elems)
 
         # (4) receive all messages, sequentially per slot  [Alg 2, lines 14-17]
         if self.resolved_engine == "fused":
             x, buf, buf_elems, cpu = engine_mod.fused_receive(
-                self, x, buf, buf_elems, cpu, d_all)
+                self, x, buf, buf_elems, cpu, d_all, faults)
         else:
             x, buf, buf_elems, cpu = self._receive_reference(
-                x, buf, buf_elems, cpu, d_all)
+                x, buf, buf_elems, cpu, d_all, faults)
 
         # (5) metrics
         return AlgoCarry(x, buf, buf_elems), self._metrics(
+            tx, cpu, lat.size(x), buf_elems)
+
+    # -- anti-entropy resync rounds -------------------------------------------
+
+    @staticmethod
+    def _slot_where(cond, a, b):
+        """Select between two slot-major [P, N, U] states by a [N, P]
+        node-major mask. The mask is transposed into a contiguous copy:
+        a transposed view would lay the result out transposed too, and
+        the kernels take contiguous operands."""
+        return torch.where(cond.T.contiguous()[..., None], a, b)
+
+    def _join_inbox(self, x, inbox):
+        """x ⊔ every (pre-masked) inbox slot [P, N, U], in slot order: one
+        ``round_recv`` launch on the kernel engines, the torch loop on the
+        reference engine (max/or joins are exact, so both agree)."""
+        if self.resolved_engine in engine_mod.KERNEL_ENGINES:
+            return engine_mod.fused_join_inbox(self, x, inbox)
+        for q in range(self.topo.max_degree):
+            x = self.lattice.join(x, inbox[q])
+        return x
+
+    def _resync_round(self, carry: AlgoCarry, op_delta, faults=None):
+        """One pipelined anti-entropy round of ``state_driven`` /
+        ``digest_driven``.
+
+        What a node sends is a function of its current state and, for
+        responses, the latest request or digest it holds, recomputed every
+        round; so faults need no retention — a lost message is subsumed by
+        the next handshake, and a stale digest is safe because states only
+        grow. On the kernel engines (``mega`` included) ``digest_driven``
+        runs one ``digest_blocks``, one ``masked_extract`` and one
+        ``round_recv`` launch per round, ``state_driven`` one
+        ``round_recv``."""
+        lat, topo, acc = self.lattice, self.topo, self.metric_dtype
+        n = topo.num_nodes
+        kernels = self.resolved_engine in engine_mod.KERNEL_ENGINES
+        x, buf, buf_elems, aux = carry
+
+        # (1) local update: δ joins in (no buffering: the op's effect rides
+        # the state itself)
+        dsz = lat.size(op_delta)                                   # [N]
+        x = lat.join(x, op_delta)
+        cpu = self.msum(dsz, acc)
+
+        # slot-major [P, N] masks (contiguous: see _slot_where)
+        send_live = self.send_live(faults).T.contiguous()
+        valid = self.recv_valid(faults).T.contiguous()
+
+        if self.name == "state_driven":
+            # Per-edge orientation: the lower id initiates (ships its
+            # state), the higher id responds with Δ computed at receive time.
+            ids = torch.arange(n, dtype=topo.nbrs.dtype, device=self.device)
+            init_send = (ids[:, None] < topo.nbrs) & topo.mask      # [N, P]
+            req_recv = ((topo.nbrs < ids[:, None])
+                        & topo.mask).T.contiguous()               # [P, N]
+            d_all = self._slot_where(init_send, self._bcast_sends(x), buf)
+            dig_words = None
+        else:
+            # digest_driven: every slot ships (digest, differing blocks)
+            dig, dvalid = aux                      # [P, N, nB, 3], [P, N]
+            spec = self.digest_spec
+            kind = lat.kernel_kind or "max"
+            u = D.state_universe(lat.bottom())
+            if kernels:
+                local_dig = engine_mod.fused_digest(x, spec, kind)
+            else:
+                local_dig = D.digest_state(x, spec, kind)      # [N, nB, 3]
+            blocks = D.digest_diff(local_dig[None], dig) \
+                & dvalid[..., None]                            # [P, N, nB]
+            if kernels:
+                d_all = engine_mod.fused_extract(x, blocks, spec)
+            else:
+                em = D.block_mask_to_elems(blocks, u, spec)
+                d_all = D.extract_blocks(x[None], em)          # [P, N, U]
+            # The digest exchange is priced as the Merkle-descent
+            # transcript between the two current trees, capped at the flat
+            # leaf layer; an undelivered exchange costs the unanswered
+            # root only.
+            dig_in = local_dig[topo.nbrs.T.long()]             # [P, N, nB, 3]
+            ok = topo.mask if faults is None else topo.mask & faults.send_ok
+            desc = torch.clamp_max(D.descent_words(local_dig[None], dig_in),
+                                   spec.words(u))              # [P, N]
+            dig_words = torch.where(ok.T, desc, D.CHANNELS) * send_live
+
+        # (2) sends: tx counts what an up sender puts on the wire,
+        # delivered or not
+        tx = self.msum(lat.size(d_all) * send_live, acc)
+        if dig_words is not None:
+            tx = tx + self.msum(dig_words, acc)
+        cpu = cpu + tx
+
+        # (3) receive: gather and mask once (the masked inbox is also the
+        # Δ-response operand), then one join fold per engine
+        inbox = T.where_bot(valid, engine_mod.gather_inbox(d_all, topo))
+        cpu = cpu + self.msum(lat.size(inbox), acc)
+        x = self._join_inbox(x, inbox)
+
+        if self.name == "state_driven":
+            # (4a) responses: Δ(x', request) for every delivered request,
+            # overwriting the response buffer (a lost request just skips
+            # this round's response; the initiator asks again)
+            req_ok = req_recv & valid
+            resp = T.where_bot(req_ok, lat.delta(self._bcast_sends(x), inbox))
+            rsz = lat.size(resp)                                   # [P, N]
+            cpu = cpu + self.msum(rsz, acc)
+            buf = resp
+            buf_elems = rsz.sum(0, dtype=torch.int32)
+        else:
+            # (4b) store the delivered digests (each sender broadcast ONE
+            # digest to all its neighbours)
+            dig = torch.where(valid[..., None, None], dig_in, dig)
+            dvalid = dvalid | valid
+            aux = (dig, dvalid)
+            # digesting the state is one pass over U per up node
+            upm = torch.ones_like(dsz) if faults is None \
+                else faults.up.to(torch.int32)
+            cpu = cpu + self.msum(upm * u, acc)
+            # memory: the stored remote digests are this mode's metadata
+            buf_elems = dvalid.sum(0, dtype=torch.int32) * spec.words(u)
+
+        return AlgoCarry(x, buf, buf_elems, aux), self._metrics(
             tx, cpu, lat.size(x), buf_elems)
 
     def _metrics(self, tx, cpu, state_elems, buf_elems) -> RoundMetrics:
@@ -215,11 +398,12 @@ class SyncAlgorithm:
         return RoundMetrics(tx=tx, mem=node_mem.sum(dtype=acc), cpu=cpu,
                             max_mem_node=node_mem.max())
 
-    def _receive_reference(self, x, buf, buf_elems, cpu, d_all):
+    def _receive_reference(self, x, buf, buf_elems, cpu, d_all, faults=None):
         """Reference receive: the sequential per-slot loop."""
         lat, topo, acc = self.lattice, self.topo, self.metric_dtype
+        recv_valid = self.recv_valid(faults)
         for q in range(topo.max_degree):
-            valid = topo.mask[:, q]
+            valid = recv_valid[:, q]
             d = T.where_bot(valid, d_all[topo.rev[:, q].long(),
                                          topo.nbrs[:, q].long()])
             if self.name == "state":

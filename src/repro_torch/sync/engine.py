@@ -9,6 +9,13 @@ bit-identical in final states, buffers and metrics:
 * ``mega``      — the whole round (local join, buffering, sends, clear,
   routing, receive) as one ``round_step`` launch.
 
+Fault masks fold into the kernels' inputs: ``active`` = topology padding ∧
+delivery, ``delivered`` gates ``round_step``'s buffer clear. The resync
+modes (``state_driven``/``digest_driven``) take the per-phase kernels on
+both kernel engines, ``mega`` included: ``digest_blocks`` and
+``masked_extract`` for the digest exchange, one ``round_recv`` for the
+receive.
+
 Dispatch is by ``Lattice.kernel_kind``: lattices without a dense kernel kind
 fall back to ``reference``. The kernel engines' epilogues (the classic/bp
 keep-gated buffer merge, the metric sums) are plain torch, as they are plain
@@ -64,22 +71,25 @@ def fused_loo_sends(buf, kind: str):
     return kops.buffer_fold(buf, kind=kind)
 
 
-def fused_receive(algo, x, buf, buf_elems, cpu, d_all):
+def fused_receive(algo, x, buf, buf_elems, cpu, d_all, faults=None):
     """Algorithm 2 lines 14-17 for all P slots in one ``round_recv`` launch.
 
     The kernel counts each slot's novel irreducibles ``cnt`` against the
     RUNNING state, so the reference loop's reductions become scalar tests:
     ¬(d ⊑ x) ⇔ cnt > 0 and Δ(d, x) = ⊥ ⇔ cnt = 0. RR buffers take the
     extractions (⊥ wherever not novel); classic/BP buffers take the whole
-    δ-group where it inflated x. ``buf`` is the freshly cleared buffer of
-    this round, so it is updated in place. Returns
+    δ-group where it inflated x, joined into what the clear left (under
+    faults a retained buffer keeps its entries). Fault masks fold into the
+    kernel's active-slot input, so a dropped slot adds nothing to x, the
+    counts or the buffers. ``buf`` is this round's cleared buffer (a fresh
+    tensor), so it is updated in place. Returns
     ``(x, buf, buf_elems, cpu)``."""
     lat, topo, acc = algo.lattice, algo.topo, algo.metric_dtype
     kind = lat.kernel_kind
     p = topo.max_degree
     inbox = gather_inbox(d_all, topo)                    # [P, N, U]
     x, stored, _, cnt, dsz = kops.round_recv(
-        inbox, x, kind=kind, active=algo.active[0],
+        inbox, x, kind=kind, active=algo.recv_valid(faults),
         emit_stored=algo.extracts)
     cpu = cpu + algo.msum(dsz, acc)
     if not algo.has_buffer:                              # state-based
@@ -100,40 +110,48 @@ def fused_receive(algo, x, buf, buf_elems, cpu, d_all):
     return x, buf, buf_elems, cpu
 
 
-def mega_round(algo, x, buf, buf_elems, op_delta):
+def mega_round(algo, x, buf, buf_elems, op_delta, faults=None):
     """Phases (1)-(4) of one round through one ``round_step`` launch.
 
     Returns ``(x, buf, buf_elems, tx, cpu, state_elems)``, bit-identical to
     the reference phases: the kernel emits every count the metrics need as
     exact int32 per-(node, slot) tallies, and this epilogue sums them in
     the reference order. The buffer goes in and comes out as a
-    [K, 1, N, U] view of the carry's layout (no copy). Classic/BP's
-    keep-gated merge reduces over the whole universe (¬(d ⊑ x) ⇔ cnt > 0),
-    so it runs here on the kernel's masked inbox, in place on the kernel's
-    fresh buffer output.
+    [K, 1, N, U] view of the carry's layout (no copy). Faults enter as the
+    kernel's ``active`` (delivery) and ``delivered`` (ack-gated clear)
+    inputs; the epilogue's ``buf_elems`` follows the same retention.
+    Classic/BP's keep-gated merge reduces over the whole universe
+    (¬(d ⊑ x) ⇔ cnt > 0), so it runs here on the kernel's masked inbox,
+    joined in place into the kernel's fresh buffer output.
     """
     lat, topo, acc = algo.lattice, algo.topo, algo.metric_dtype
     kind = lat.kernel_kind
     p = topo.max_degree
+    dlv = algo.delivered(faults)                         # None: all clear
     if not algo.has_buffer:
-        bv = dlv = None
+        bv = dlv_in = None
     else:
         bv = buf[:, None] if algo.per_origin else buf[None, None]
-        dlv = algo.delivered
+        dlv_in = (torch.ones((1, topo.num_nodes), dtype=torch.int32,
+                             device=x.device) if dlv is None
+                  else dlv.to(torch.int32)[None])
+    active = algo.recv_valid(faults).to(torch.int32)[None]
     xo, bo, inbox, dsz_op, xsz, ssend, cnt, dsz = kops.sync_round(
-        op_delta[None], x[None], bv, algo.active, dlv, nbrs=topo.nbrs,
+        op_delta[None], x[None], bv, active, dlv_in, nbrs=topo.nbrs,
         rev=topo.rev, kind=kind, per_origin=algo.per_origin,
         extracts=algo.extracts)
     dsz_op, xsz, ssend, cnt, dsz = (a[0] for a in (dsz_op, xsz, ssend, cnt,
                                                     dsz))
     # metric arithmetic in the reference round_step's order
     cpu = algo.msum(dsz_op, acc)                         # (1) local update
-    tx = algo.msum(ssend * topo.mask, acc)               # (2) sends
+    tx = algo.msum(ssend * algo.send_live(faults), acc)  # (2) sends
     cpu = cpu + tx
     cpu = cpu + algo.msum(dsz, acc)                      # (4) receive
     if not algo.has_buffer:
         return xo[0], buf, buf_elems, tx, cpu, xsz
-    # (3) the fault-free clear empties every buffer; (4) refills it
+    # (3) the ack-gated clear ran in the kernel; its entry counts follow
+    buf_elems = torch.zeros_like(buf_elems) if dlv is None \
+        else torch.where(dlv, 0, buf_elems + dsz_op)
     buf = bo[:, 0] if algo.per_origin else bo[0, 0]
     if algo.extracts:                                    # rr / bprr: in-kernel
         ssz = cnt
@@ -146,5 +164,25 @@ def mega_round(algo, x, buf, buf_elems, op_delta):
         else:
             buf = lat.join(buf, fold_slots(slot_vals, kind))
     cpu = cpu + algo.msum(ssz, acc)
-    buf_elems = ssz.sum(-1, dtype=torch.int32)
+    buf_elems = buf_elems + ssz.sum(-1, dtype=torch.int32)
     return xo[0], buf, buf_elems, tx, cpu, xsz
+
+
+def fused_join_inbox(algo, x, inbox):
+    """Resync receive: fold all P pre-masked inbox slots [P, N, U] into x
+    in one ``round_recv`` launch (no extractions; the counts are unused)."""
+    xo, _, _, _, _ = kops.round_recv(inbox, x, kind=algo.lattice.kernel_kind,
+                                     emit_stored=False)
+    return xo
+
+
+def fused_digest(x, spec, kind: str):
+    """Blockwise digest [N, nB, 3] of the states in one ``digest_blocks``
+    launch; bit-identical to ``sync.digest.digest_state``."""
+    return kops.digest_blocks(x, block_elems=spec.block_elems, kind=kind)
+
+
+def fused_extract(x, block_masks, spec):
+    """Δ(state, block mask) for all P slots, [P, N, nB] masks -> [P, N, U]
+    sends, in one ``masked_extract`` launch (the state is read once)."""
+    return kops.masked_extract(x, block_masks, block_elems=spec.block_elems)

@@ -13,6 +13,11 @@ metrics stay on the device and reach the host once, in
 the current states ``x`` [N, ...U]; rounds ``t >= active_rounds`` take no
 ops (the quiescent drain that lets convergence be asserted).
 
+Faults: an optional ``FaultSchedule`` is folded into per-round device masks
+once (``FaultSchedule.views``); round ``t`` reads its slice, down nodes
+execute no ops, and every engine honours the masks identically. An all-ok
+schedule is bit-identical to none.
+
 Metrics accumulate in int64 (``wide_metrics=True``), or in int32 with a
 negative-count overflow check.
 """
@@ -25,7 +30,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.lattice import Lattice
+from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import AlgoCarry, SyncAlgorithm
+from repro_torch.sync.digest import DigestSpec
+from repro_torch.sync.faults import FaultSchedule
 from repro_torch.sync.topology import Topology
 
 
@@ -124,7 +132,9 @@ def simulate(
     loo: str = "prefix",
     engine: str = "reference",
     wide_metrics: bool = True,
-    track_convergence: bool = False,
+    faults: Optional[FaultSchedule] = None,
+    track_convergence: Optional[bool] = None,
+    digest: Optional[DigestSpec] = None,
     device="cuda",
 ) -> SimResult:
     """Run ``active_rounds`` op+sync rounds plus ``quiet_rounds`` sync-only
@@ -135,22 +145,40 @@ def simulate(
     (``round_recv`` + ``buffer_fold`` kernels) or ``"mega"`` (one
     ``round_step`` launch per round); all three are bit-identical, and the
     kernel engines fall back to the reference for lattices without a dense
-    kernel kind. ``track_convergence`` records per-round cluster agreement
-    (``SimResult.uniform`` / ``convergence_round()``).
+    kernel kind.
+
+    ``faults`` injects message loss / partitions / node churn (rounds past
+    the schedule run fault-free). ``track_convergence`` records per-round
+    cluster agreement (``SimResult.uniform`` / ``convergence_round()``);
+    the default None turns it on exactly when a fault schedule is given.
+    ``digest`` sets the block geometry of ``digest_driven`` (ignored by
+    the other algorithms).
     """
     dev = resolve_device(device)
+    if faults is not None and not faults.same_topology(topo):
+        raise ValueError(
+            f"FaultSchedule was built for topology {faults.topo.name!r}, "
+            f"not {topo.name!r}: its edge masks would land on the wrong slots")
+    if track_convergence is None:
+        track_convergence = faults is not None
     alg = SyncAlgorithm(
         name=algo, lattice=lattice, topo=topo.on(dev), loo=loo,
         engine=engine,
-        metric_dtype=torch.int64 if wide_metrics else torch.int32)
+        metric_dtype=torch.int64 if wide_metrics else torch.int32,
+        digest=digest)
     carry = alg.init(x0)
+    total = active_rounds + quiet_rounds
+    views = None if faults is None else faults.views(total, dev)
     metrics, uniform = [], []
-    for t in range(active_rounds + quiet_rounds):
+    for t in range(total):
+        rf = None if views is None else views.at_round(t)
         if t < active_rounds:
             delta = op_fn(carry.x, t).to(carry.x.dtype)
+            if rf is not None:                  # a down node executes no ops
+                delta = T.where_bot(rf.up, delta)
         else:
             delta = torch.zeros_like(carry.x)
-        carry, m = alg.round_step(carry, delta)
+        carry, m = alg.round_step(carry, delta, rf)
         metrics.append(m)
         if track_convergence:
             uniform.append(cluster_uniform(lattice, carry.x))

@@ -17,8 +17,11 @@ def bcast(state: torch.Tensor, prefix: tuple) -> torch.Tensor:
 def where(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
     """Select between two states; ``cond`` has the leading shape and is
     right-padded with singleton axes to the states' rank. ``b`` may be a
-    Python scalar (0 is ⊥ for every dense lattice)."""
+    Python scalar (0 is ⊥ for every dense lattice); it takes ``a``'s dtype,
+    so a bool state stays bool."""
     c = cond.reshape(tuple(cond.shape) + (1,) * (a.ndim - cond.ndim))
+    if not isinstance(b, torch.Tensor):
+        b = a.new_full((), b)
     return torch.where(c, a, b)
 
 

@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from repro_torch import convert, kernels
-from repro_torch.core import GCounter, GSet
+from repro_torch.core import GCounter, GMap, GSet
 from repro_torch.kernels import buffer_fold as kfold
+from repro_torch.kernels import digest_blocks as kdig
+from repro_torch.kernels import masked_extract as kext
 from repro_torch.kernels import ops
 from repro_torch.kernels import round_recv as krecv
 from repro_torch.kernels import round_step as kstep
-from repro_torch.sync import ENGINES, simulate, topology, workloads
+from repro_torch.sync import (ENGINES, DigestSpec, FaultSchedule, simulate,
+                              topology, workloads)
 
 KINDS = {"max_i32": ("max", np.int32), "max_bool": ("max", np.bool_),
          "bitor_u32": ("bitor", np.uint32)}
@@ -163,3 +166,83 @@ def test_wrappers_refuse_non_contiguous_input(sm90):
                          torch.ones((1, 15, 4), dtype=torch.int32, device=sm90),
                          torch.ones((1, 15), dtype=torch.int32, device=sm90),
                          topo.nbrs, topo.rev, per_origin=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("be", [8, 32, 64, 128])
+def test_digest_blocks_kernel_vs_plain(sm90, kind_name, be, rng):
+    """U off the block and 32-element multiples: the zero-padded last block
+    enters the hash; BitGSet words with bit 31 set order as unsigned."""
+    kind = KINDS[kind_name][0]
+    for n, u in ((9, 1001), (15, 333), (40, 70)):
+        x = both(rand_state(rng, kind_name, n, u), sm90)
+        n0 = kdig.launches
+        got = ops.digest_blocks(x[1], block_elems=be, kind=kind)
+        torch.cuda.synchronize()
+        assert kdig.launches == n0 + 1
+        assert_equal(got, ops.digest_blocks(x[0], block_elems=be, kind=kind),
+                     f"digest n={n} u={u}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("be", [8, 32, 64, 128])
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_masked_extract_kernel_vs_plain(sm90, kind_name, be, p, rng):
+    """Masks all-zero, all-one and random; rows 16-byte aligned (U = 1024)
+    and not (U = 1001, 70)."""
+    for n, u in ((9, 1001), (15, 1024), (40, 70)):
+        nb = -(-u // be)
+        x = both(rand_state(rng, kind_name, n, u), sm90)
+        for masks in (np.zeros((p, n, nb), bool), np.ones((p, n, nb), bool),
+                      rng.random((p, n, nb)) < 0.5):
+            m = both(masks, sm90)
+            n0 = kext.launches
+            got = ops.masked_extract(x[1], m[1], block_elems=be)
+            torch.cuda.synchronize()
+            assert kext.launches == n0 + 1
+            assert_equal(got, ops.masked_extract(x[0], m[0], block_elems=be),
+                         f"extract n={n} u={u}")
+
+
+def expected_launches(engine, algo, rounds):
+    kern = engine in ("fused", "mega")
+    resync = algo in ("state_driven", "digest_driven")
+    return {"round_step": rounds if engine == "mega" and not resync else 0,
+            "round_recv": rounds if kern and (resync or engine == "fused")
+            else 0,
+            "buffer_fold": rounds if engine == "fused"
+            and algo in ("bp", "bprr") else 0,
+            "digest_blocks": rounds if kern and algo == "digest_driven"
+            else 0,
+            "masked_extract": rounds if kern and algo == "digest_driven"
+            else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["state", "classic", "bp", "rr", "bprr",
+                                  "state_driven", "digest_driven"])
+def test_faulted_simulate_on_the_card_matches_the_cpu(sm90, algo):
+    """Loss, a partition and a down node on the paper's mesh from a
+    divergent start; the kernel engines launch their kernels every round
+    (mega runs the per-phase kernels for the resync modes)."""
+    topo = topology.partial_mesh(15, 4)
+    groups = (np.arange(15) >= 7).astype(np.int32)
+    sched = FaultSchedule.partition(topo, 6, 1, 4, groups).compose(
+        FaultSchedule.bernoulli(topo, 8, 0.2, seed=3)).compose(
+        FaultSchedule.churn(topo, 6, [(4, 2, 5)]))
+    lat, op = GMap(300).lattice, workloads.gmap_block_op(15, 300, 10)
+    x0 = torch.zeros((15, 300), dtype=torch.int32)
+    x0[1:, :97] = 3
+    kw = dict(x0=x0, faults=sched, digest=DigestSpec(32))
+    want = simulate(algo, lat, topo, op, 6, 6, device="cpu", **kw)
+    for engine in ENGINES:
+        kernels.reset_launches()
+        got = simulate(algo, lat, topo, op, 6, 6, engine=engine, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == expected_launches(engine, algo, 12)
+        for nm in ("tx", "mem", "cpu", "max_mem_node", "uniform"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+        assert torch.equal(got.final_x.cpu(), want.final_x)

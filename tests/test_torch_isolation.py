@@ -1,8 +1,9 @@
-"""The port stands alone: importing ``repro_torch`` (every module) and
-``chip_smoke.py`` pulls in neither ``jax`` nor the JAX package ``repro``, no
-source file of theirs imports either, and the entry points run on the card
-unless told otherwise — without a card, ``simulate`` with no ``device=``
-raises instead of falling back to the CPU."""
+"""The port stands alone: importing ``repro_torch`` (every module, the fault
+schedules, digests and digest kernels included) and ``chip_smoke.py`` pulls
+in neither ``jax`` nor the JAX package ``repro``, no source file of theirs
+imports either, and the entry points run on the card unless told otherwise —
+without a card, ``simulate`` with no ``device=`` raises instead of falling
+back to the CPU, for the δ-family and for a faulted resync run alike."""
 
 import ast
 import subprocess
@@ -69,11 +70,24 @@ def test_entry_points_default_to_the_card():
         "             workloads.gcounter_op(3), 2)\n"
         "except RuntimeError as e:\n"
         "    print('RAISED', e)\n"
+        "from repro_torch.sync import FaultSchedule\n"
+        "f = FaultSchedule.bernoulli(topology.ring(3), 2, 0.5, seed=1)\n"
+        "try:\n"
+        "    simulate('digest_driven', GCounter(3).lattice, topology.ring(3),\n"
+        "             workloads.gcounter_op(3), 2, faults=f, engine='fused')\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n"
         "r = simulate('bprr', GCounter(3).lattice, topology.ring(3),\n"
         "             workloads.gcounter_op(3), 2, engine='mega', device='cpu')\n"
-        "print('CPU', r.total_tx, kernels.launch_counts())\n")
+        "r = simulate('digest_driven', GCounter(3).lattice, topology.ring(3),\n"
+        "             workloads.gcounter_op(3), 2, faults=f, engine='mega',\n"
+        "             device='cpu')\n"
+        "print('CPU', r.total_tx, sum(kernels.launch_counts().values()),\n"
+        "      sorted(kernels.KERNELS))\n")
     out = run_python(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert "RAISED no CUDA device" in out.stdout, out.stdout
-    # the CPU run took the plain versions: no kernel was launched
-    assert "'round_step': 0" in out.stdout, out.stdout
+    assert out.stdout.count("RAISED no CUDA device") == 2, out.stdout
+    # the CPU runs took the plain versions: no kernel was launched
+    assert "CPU" in out.stdout and " 0 ['buffer_fold', 'digest_blocks', " \
+        "'masked_extract', 'round_recv', 'round_step']" in out.stdout, \
+        out.stdout

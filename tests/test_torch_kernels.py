@@ -28,6 +28,10 @@ from repro_torch import convert
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops, round_step as kstep
 
+# The states here are small: one intra-op thread per test process keeps
+# the suite's parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 N, U = 9, 333
 KINDS = {  # name -> (kernel kind, numpy dtype)
     "max_i32": ("max", np.int32),

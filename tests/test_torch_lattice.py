@@ -17,6 +17,10 @@ from repro.core import types as jtypes
 from repro_torch import convert
 from repro_torch.core import types as ttypes
 
+# The states here are small: one intra-op thread per test process keeps
+# the suite's parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 N, U = 7, 96
 
 

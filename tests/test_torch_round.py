@@ -23,7 +23,12 @@ from repro.sync import topology as jtopo
 
 from repro_torch import convert
 from repro_torch.core import types as ttypes
-from repro_torch.sync import ALGORITHMS, ENGINES, SyncAlgorithm
+from repro_torch.sync import (ALGORITHMS, ENGINES, RESYNC_ALGORITHMS,
+                              SyncAlgorithm)
+
+# The states here are small: one intra-op thread per test process keeps
+# the suite's parallel workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOPOS = {"tree15": lambda: jtopo.tree(15),
          "mesh15d4": lambda: jtopo.partial_mesh(15, 4)}
@@ -72,7 +77,8 @@ def jax_round(lattice_name, algo, topo_name):
 
 @pytest.mark.parametrize("lattice_name", sorted(LATTICES))
 @pytest.mark.parametrize("topo_name", sorted(TOPOS))
-@pytest.mark.parametrize("algo", ALGORITHMS)
+@pytest.mark.parametrize("algo", [a for a in ALGORITHMS
+                                  if a not in RESYNC_ALGORITHMS])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_one_round_matches_jax(lattice_name, topo_name, algo, engine):
     jtp, (x, buf, buf_elems, delta), want_carry, want_metrics = \
@@ -84,7 +90,7 @@ def test_one_round_matches_jax(lattice_name, topo_name, algo, engine):
     carry = convert.carry_to_torch(x, buf, buf_elems)
     out, metrics = alg.round_step(carry, convert.to_torch(delta))
     words = lattice_name == "bitgset"
-    got_carry = convert.carry_to_numpy(out, words)
+    got_carry = convert.carry_to_numpy(out, words)[:3]
     for nm, g, w in zip(("x", "buf", "buf_elems"), got_carry, want_carry):
         if w is None:
             assert g is None, nm
@@ -94,7 +100,7 @@ def test_one_round_matches_jax(lattice_name, topo_name, algo, engine):
                         want_metrics):
         assert int(g) == int(w), nm
     # the round never wrote into the carry it was given
-    x2, buf2, be2 = convert.carry_to_numpy(carry, words)
+    x2, buf2, be2, _ = convert.carry_to_numpy(carry, words)
     np.testing.assert_array_equal(x2, x)
     np.testing.assert_array_equal(be2, buf_elems)
     if buf is not None:
@@ -127,7 +133,7 @@ def test_naive_leave_one_out_is_the_same_round(algo):
         outs.append(alg.round_step(carry, convert.to_torch(delta)))
     (c1, m1), (c2, m2) = outs
     for a, b in zip(tuple(c1) + tuple(m1), tuple(c2) + tuple(m2)):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_carried_buffer_is_slot_major_and_comes_back():
