@@ -16,8 +16,14 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    active/delivered masks with zeros (the fault masks), digest blocks
    be ∈ {8, 32, 64, 128}, P ∈ {1, 4, 8} extraction masks all-zero, all-one
    and random, N ∈ {9, 15, 40} and U off tile and block multiples; then
-   each timed (CUDA events, median of 25) beside its plain version and its
-   byte bound at the scale phase's shapes;
+   each timed (CUDA events, median of 25 samples of 5 back-to-back calls)
+   beside its plain version and its byte bound at the scale phase's
+   shapes; the elementwise kernels (join over max uint8 / int8 / int32 /
+   bool and bitor, delta_extract likewise, lex_join_delta) at small shapes
+   off multiples of 4 and 16 and at views not 16-byte aligned, then at
+   [15, 4,194,304] int32 beside their plain versions, the single library
+   call where one exists (torch.maximum, torch.bitwise_or) and their byte
+   bounds;
 4. paper size, each run on all three engines (bit-identical, each kernel
    engine's launches equal to its rounds):
    - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
@@ -37,16 +43,27 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
      GSet(1,024) r25 join of phase 4; digest_driven on all three engines),
      (b) a BitGSet join at 2^27 bits (digest_driven), (c) GMap bprr under
      10% loss (fused and mega against the reference engine);
-6. profile: ``torch.profiler`` over three GMap rounds per kernel engine
-   (bprr) and three digest_driven rounds on ``fused`` — device time by
-   kernel and the device's busy share; a profiler failure fails the run.
+6. the lex-pair main path: LWWMap with 4,194,304 keys (the GMap 10% key
+   blocks written as (timestamp + 1, node id + 1)), bprr and classic on the
+   mesh, 12 + 8 rounds on the reference engine (ms per round, peak memory;
+   27,962 × the GCounter(15) run; ``engine="mega"`` resolves to the
+   reference and launches nothing); replicas merging the results through
+   ``ops.lex_join_delta``, ``ops.join`` and ``ops.delta_extract``; LWWMap
+   at 65,536 keys under 10% loss and in a digest_driven join, each run on
+   the card equal to the CPU run; ``repro_torch.quickstart`` on the card
+   equal to the CPU;
+7. profile: ``torch.profiler`` over three GMap rounds per kernel engine
+   (bprr), three LWWMap rounds (reference) and three digest_driven rounds
+   on ``fused`` — device time by kernel and the device's busy share; a
+   profiler failure fails the run.
 
-Phases 4 and 5 are the main path: the launch counters are zeroed before
-and read after them. Prints per-phase seconds, one ``{"kernels": [...]}``
-line, the card's ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``; exits non-zero, without that line, if
-anything fails or no card is present. Details go to
-``chiprun_out/chip_smoke.json``.
+Phases 4–5 are the sync engines' main path and phase 6 the lex-pair one
+(the elementwise kernels' users): the launch counters are zeroed before
+and read after each. Prints
+per-phase seconds, one ``{"kernels": [...]}`` line, the card's
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``; exits non-zero, without that line, if anything fails or no card
+is present. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -64,7 +81,8 @@ sys.path.insert(0, str(REPO / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit peak
-REPS = 25
+REPS = 25                        # timed samples of a kernel
+BATCH = 5                        # back-to-back calls in one sample
 SCALE_RUNS = 5                   # timed runs of each scale configuration
 SCALE_KEYS = 4_194_304
 BIT_UNIVERSE = 2 ** 27
@@ -83,8 +101,12 @@ class Checks:
 
 
 def time_ms(fn, reps=REPS):
-    """Median CUDA-event time of ``fn`` over ``reps`` calls, after two
-    warm-up calls."""
+    """Median over ``reps`` samples of the CUDA-event time per call of
+    BATCH back-to-back calls of ``fn``, after two warm-up calls. A sample
+    starts behind one more call, so the device is busy while the timed
+    calls are queued: each call's host work (the Python wrapper, the
+    launch) overlaps the device work queued before it, and a sample times
+    the device rather than the wrapper's overhead."""
     import torch
 
     for _ in range(2):
@@ -94,11 +116,13 @@ def time_ms(fn, reps=REPS):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
+        start.record()
+        for _ in range(BATCH):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BATCH)
     return statistics.median(times)
 
 
@@ -167,8 +191,8 @@ def kernel_grid(check, dev, log):
     from repro_torch.sync import topology
 
     g = torch.Generator(device=dev).manual_seed(0)
-    errs = {name: 0.0 for name in SOURCES}
-    cases = {name: 0 for name in SOURCES}
+    errs = {name: 0.0 for name in SYNC_KERNELS}
+    cases = {name: 0 for name in SYNC_KERNELS}
     for kind, tname in KINDS:
         dtype = {"int32": torch.int32, "bool": torch.bool,
                  "words": "words"}[tname]
@@ -378,17 +402,174 @@ def kernel_timings(check, dev, log):
     return out
 
 
+def elementwise_state(g, tname, shape, dev):
+    """States of the elementwise kernels: 0/1 flags, small uint8 / int32,
+    signed int8 over its whole range, full 32-bit words."""
+    import torch
+
+    if tname == "bool":
+        return torch.randint(0, 2, shape, generator=g, device=dev).bool()
+    if tname == "int8":
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    if tname == "uint8":
+        return torch.randint(0, 9, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+    return rand_state(g, "words" if tname == "words" else torch.int32,
+                      shape, dev)
+
+
+def offset_view(t, offset):
+    """``t`` as a view starting ``offset`` elements into a larger buffer
+    (offset 1: not 16-byte aligned, the kernels' scalar path)."""
+    import torch
+
+    if not offset:
+        return t
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
+
+
+def kview(t):
+    import torch
+
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def elementwise_grid(check, dev, log):
+    """join, delta_extract and lex_join_delta against their plain versions
+    at small shapes (sizes off multiples of 4 and 16) and at a view that is
+    not 16-byte aligned."""
+    import torch
+
+    from repro_torch.kernels import delta_extract as kd
+    from repro_torch.kernels import join as kj
+    from repro_torch.kernels import lex_join as kl
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = {name: 0.0 for name in ELEMENTWISE}
+    cases = {name: 0 for name in ELEMENTWISE}
+
+    def record(name, e, what):
+        errs[name] = max(errs[name], e)
+        cases[name] += 1
+        check(e == 0, f"{name} {what}: err {e}")
+
+    for shape in ((64,), (1000,), (1001,), (7, 333), (3, 5, 129), (4099,)):
+        for offset in (0, 1):
+            for kind, tname in (("max", "uint8"), ("max", "int8"),
+                                ("max", "int32"), ("max", "bool"),
+                                ("bitor", "words")):
+                a, b = (offset_view(elementwise_state(g, tname, shape, dev),
+                                    offset) for _ in "ab")
+                what = f"{kind}/{tname} {shape} offset {offset}"
+                got = kj.join(a, b, kind=kind)
+                want = kj.plain(kview(a), kview(b), kind)
+                record("join", max_abs_err(kview(got), want), what)
+                got = kd.delta_extract(a, b, kind=kind)
+                want = kd.plain(kview(a), kview(b), kind)
+                record("delta_extract", max_abs_err(
+                    tuple(kview(t) for t in got), want), what)
+            ta, va, tb, vb = (offset_view(torch.randint(
+                -2, 4, shape, generator=g, device=dev, dtype=torch.int32),
+                offset) for _ in range(4))
+            (t, v), (dt, dv), cnt = kl.lex_join_delta((ta, va), (tb, vb))
+            record("lex_join_delta", max_abs_err(
+                (t, v, dt, dv, cnt), kl.plain(ta, va, tb, vb)),
+                f"{shape} offset {offset}")
+    torch.cuda.synchronize()
+    log["elementwise_grid"] = {"cases": cases, "max_abs_err": errs}
+    print(f"elementwise grid: {cases} cases, max_abs_err {errs}", flush=True)
+    return errs
+
+
+def elementwise_timings(check, dev, log):
+    """join, delta_extract and lex_join_delta at [15, 4,194,304] int32:
+    exact against the plain version, then kernel / plain / library time
+    and the byte bound. Returns ``{name: (err, ms, plain_ms, bound_ms,
+    bound_by, library_ms)}``."""
+    import torch
+
+    from repro_torch.kernels import delta_extract as kd
+    from repro_torch.kernels import join as kj
+    from repro_torch.kernels import lex_join as kl
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (15, SCALE_KEYS)
+    n = 15 * SCALE_KEYS
+    plane = n * 4
+    out, extra = {}, {}
+
+    a, b = (rand_state(g, torch.int32, shape, dev) for _ in "ab")
+    wa, wb = (rand_state(g, "words", shape, dev) for _ in "ab")
+    e = max(max_abs_err(kj.join(a, b), kj.plain(a, b)),
+            max_abs_err(kj.join(wa, wb, kind="bitor"),
+                        kj.plain(wa, wb, "bitor")))
+    ms = time_ms(lambda: kj.join(a, b))
+    extra["join_bitor_ms"] = time_ms(lambda: kj.join(wa, wb, kind="bitor"))
+    plain_ms = time_ms(lambda: kj.plain(a, b))
+    lib_ms = time_ms(lambda: torch.maximum(a, b))
+    extra["join_bitor_library_ms"] = time_ms(lambda: torch.bitwise_or(wa, wb))
+    out["join"] = (e, ms, plain_ms, *bound(3 * plane, n), lib_ms)
+
+    e = max(max_abs_err(kd.delta_extract(a, b), kd.plain(a, b)),
+            max_abs_err(kd.delta_extract(wa, wb, kind="bitor"),
+                        kd.plain(wa, wb, "bitor")))
+    ms = time_ms(lambda: kd.delta_extract(a, b))
+    extra["delta_extract_bitor_ms"] = time_ms(
+        lambda: kd.delta_extract(wa, wb, kind="bitor"))
+    plain_ms = time_ms(lambda: kd.plain(a, b))
+    out["delta_extract"] = (e, ms, plain_ms, *bound(4 * plane + 4, 4 * n),
+                            None)
+    del wa, wb
+
+    # timestamps and values from a small range: ties are frequent
+    ta, va, tb, vb = (torch.randint(0, 4, shape, generator=g, device=dev,
+                                    dtype=torch.int32) for _ in range(4))
+    (t, v), (dt, dv), cnt = kl.lex_join_delta((ta, va), (tb, vb))
+    e = max_abs_err((t, v, dt, dv, cnt), kl.plain(ta, va, tb, vb))
+    del t, v, dt, dv
+    ms = time_ms(lambda: kl.lex_join_delta((ta, va), (tb, vb)))
+    plain_ms = time_ms(lambda: kl.plain(ta, va, tb, vb))
+    out["lex_join_delta"] = (e, ms, plain_ms, *bound(8 * plane + 4, 12 * n),
+                             None)
+    del a, b, ta, va, tb, vb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, (e, ms, plain_ms, b_ms, b_by, lib) in out.items():
+        check(e == 0, f"{name} at scale shapes: err {e}")
+        print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"library {lib if lib is None else round(lib, 4)} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}), max_abs_err {e}", flush=True)
+    print(f"kernel join bitor {extra['join_bitor_ms']:.4f} ms (library "
+          f"torch.bitwise_or {extra['join_bitor_library_ms']:.4f} ms); "
+          f"delta_extract bitor {extra['delta_extract_bitor_ms']:.4f} ms",
+          flush=True)
+    log["elementwise_timings"] = {n_: dict(zip(
+        ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+         "library_ms"), v)) for n_, v in out.items()}
+    log["elementwise_timings"]["bitor"] = extra
+    return out
+
+
 # -- phases 4 and 5: the main path ---------------------------------------------
 
 def same_run(a, b) -> bool:
+    """Equal metrics, convergence flags and final states (a tensor or a
+    tuple of them, on any device)."""
     import numpy as np
     import torch
 
+    from repro_torch.core import tree_leaves
+
     return all(np.array_equal(x, y) for x, y in zip(
         (a.tx, a.mem, a.cpu, a.max_mem_node),
-        (b.tx, b.mem, b.cpu, b.max_mem_node))) and torch.equal(
-        a.final_x, b.final_x) and ((a.uniform is None and b.uniform is None)
-                                   or np.array_equal(a.uniform, b.uniform))
+        (b.tx, b.mem, b.cpu, b.max_mem_node))) and all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(
+            tree_leaves(a.final_x), tree_leaves(b.final_x))) and (
+        (a.uniform is None and b.uniform is None)
+        or np.array_equal(a.uniform, b.uniform))
 
 
 def expected_launches(engine, algo, rounds):
@@ -406,7 +587,9 @@ def expected_launches(engine, algo, rounds):
             "buffer_fold": rounds if engine == "fused"
             and algo in ("bp", "bprr") else 0,
             "digest_blocks": rounds if digest else 0,
-            "masked_extract": rounds if digest else 0}
+            "masked_extract": rounds if digest else 0,
+            # no engine launches the elementwise kernels
+            **{name: 0 for name in ELEMENTWISE}}
 
 
 class Launches:
@@ -498,10 +681,12 @@ def paper_phase(check, launches, log):
 
 
 def no_op(x, t):
-    """The join scenarios' op stream: sync only."""
+    """The join scenarios' op stream: sync only (any state)."""
     import torch
 
-    return torch.zeros_like(x)
+    from repro_torch.core import tree_map
+
+    return tree_map(torch.zeros_like, x)
 
 
 def join_x0(nodes, universe, ratio, tile=None, value=1, dtype=None):
@@ -847,6 +1032,184 @@ def scale_phase(check, launches, log, join_r25):
     log["scale"] = rows
 
 
+# -- phase 6: LWWMap through simulate, the merge entry points, quickstart -----
+
+def lww_write_op(blocks):
+    """The LWWMap op of the scale runs: every node writes (its current
+    timestamp + 1, its id + 1) at its keys (``blocks``, bool [N, U] on the
+    device) — the GMap 10% stream as last-writer-wins puts."""
+    import torch
+
+    ids = torch.arange(1, blocks.shape[0] + 1, dtype=torch.int32,
+                       device=blocks.device)[:, None]
+
+    def op(x, t):
+        ts, _ = x
+        return (torch.where(blocks, ts + 1, 0), torch.where(blocks, ids, 0))
+
+    return op
+
+
+def lww_phase(check, launches, log):
+    """LWWMap with 4,194,304 keys, bprr and classic on mesh15d4, 12 active
+    + 8 quiet rounds on the reference engine (the lex-pair states have no
+    dense kernel kind): per-round metrics equal 27,962 × the GCounter(15)
+    run, the final timestamps 12 and values owner id + 1 on covered keys;
+    ``engine="mega"`` resolves to the reference and launches nothing.
+    Then replicas merge through the public entry points: a fresh replica
+    takes the converged state by ``lex_join_delta``, the two runs' states
+    merge to themselves, and their timestamp planes (a GMap of versions)
+    go through ``join`` and ``delta_extract``. Returns the bprr result."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GCounter, LWWMap
+    from repro_torch.kernels import ops
+    from repro_torch.sync import simulate, topology
+    from repro_torch.sync import workloads as W
+    from repro_torch.sync.engine import resolve
+
+    active, quiet = 12, 8
+    rounds = active + quiet
+    topo = topology.partial_mesh(15, 4)
+    blocks = W.gmap_key_blocks(15, SCALE_KEYS, 10)
+    per_node = int(blocks.sum(1)[0])
+    covered = torch.as_tensor(blocks.any(0), device="cuda")
+    owner = torch.as_tensor(blocks.argmax(0), device="cuda").to(torch.int32)
+    want_t = torch.where(covered, 12, 0).to(torch.int32).expand(15, SCALE_KEYS)
+    want_v = torch.where(covered, owner + 1, 0).to(torch.int32) \
+        .expand(15, SCALE_KEYS)
+    op = lww_write_op(torch.as_tensor(blocks, device="cuda"))
+    lat = LWWMap(SCALE_KEYS).lattice
+    check(resolve("mega", lat) == "reference",
+          "LWWMap does not resolve to the reference engine")
+    plane = 15 * SCALE_KEYS * 4
+    rows, finals = [], {}
+    for algo in ("bprr", "classic"):
+        oracle = simulate(algo, GCounter(15).lattice, topo,
+                          W.gcounter_op(15), active, quiet)
+        k = topo.max_degree + 1 if algo == "bprr" else 1
+        # the bytes of the round's state passes, each leaf once (as the
+        # GMap bound, for two leaves)
+        b_ms = ms_bound(2 * (2 * k + 3) * plane)
+        tag = f"lww{SCALE_KEYS} mesh {algo} reference"
+        r, ms, peak = scale_run(
+            launches, tag, "reference", algo, rounds,
+            lambda a=active, q=quiet: simulate(algo, lat, topo, op, a, q,
+                                               engine="reference"))
+        for nm in ("tx", "mem", "cpu", "max_mem_node"):
+            check(np.array_equal(getattr(r, nm),
+                                 per_node * getattr(oracle, nm)),
+                  f"{tag}: {nm} != {per_node} x GCounter(15)")
+        check(torch.equal(r.final_x[0], want_t)
+              and torch.equal(r.final_x[1], want_v), f"{tag}: final state")
+        rows.append(scale_row(f"lww{SCALE_KEYS}_k10", topo.name, algo,
+                              "reference", ms, b_ms, peak, r))
+        print_scale(tag, ms, b_ms, peak, r)
+        finals[algo] = r
+        torch.cuda.empty_cache()
+    mega = launches.run("lww mesh bprr mega", "reference", "bprr", rounds,
+                        lambda: simulate("bprr", lat, topo, op, active, quiet,
+                                         engine="mega"))
+    check(same_run(mega, finals["bprr"]),
+          "lww bprr: engine='mega' differs from the reference run")
+    del mega
+    torch.cuda.empty_cache()
+
+    # replicas merge through the public entry points
+    fresh = lat.bottom("cuda")
+    fresh = tuple(a.expand(15, SCALE_KEYS).contiguous() for a in fresh)
+    held = finals["bprr"].final_x
+    merged, delta, cnt = ops.lex_join_delta(fresh, held)
+    n_cov = 15 * int(covered.sum())
+    check(int(cnt) == n_cov and all(torch.equal(m, h) for m, h in
+                                    zip(merged, held))
+          and all(torch.equal(d, h) for d, h in zip(delta, held)),
+          f"lex_join_delta(fresh, state): count {int(cnt)} vs {n_cov}")
+    merged, delta, cnt = ops.lex_join_delta(held, finals["classic"].final_x)
+    check(int(cnt) == 0 and all(torch.equal(m, h)
+                                for m, h in zip(merged, held)),
+          f"lex_join_delta(bprr, classic): count {int(cnt)}")
+    check(torch.equal(ops.join(held[0], finals["classic"].final_x[0]),
+                      want_t), "join of the timestamp planes")
+    s, xj, cnt = ops.delta_extract(held[0], fresh[0])
+    check(int(cnt) == n_cov and torch.equal(s, want_t)
+          and torch.equal(xj, want_t),
+          f"delta_extract(timestamps, fresh): count {int(cnt)} vs {n_cov}")
+    log["lww_scale"] = rows
+    return finals["bprr"]
+
+
+def lww_small_phase(check, launches, log):
+    """LWWMap at 65,536 keys through faults and resync on the card, each
+    run identical to the same run on the CPU: bprr under 10% loss (seed 7)
+    with the write stream, and a digest_driven join (donors hold every
+    tile's first quarter at (1, 7), the joiner ⊥) on all three engine
+    names."""
+    import torch
+
+    from repro_torch.core import LWWMap
+    from repro_torch.sync import DigestSpec, FaultSchedule, simulate, topology
+    from repro_torch.sync import workloads as W
+
+    u, active, quiet = 65_536, 12, 8
+    topo = topology.partial_mesh(15, 4)
+    lat = LWWMap(u).lattice
+    blocks = W.gmap_key_blocks(15, u, 10)
+    sched = FaultSchedule.bernoulli(topo, active, 0.10, seed=7)
+    t0 = time.perf_counter()
+    runs = 0
+    want = simulate("bprr", lat, topo,
+                    lww_write_op(torch.as_tensor(blocks)), active, quiet,
+                    faults=sched, device="cpu")
+    got = launches.run("lww loss10 bprr", "reference", "bprr",
+                       active + quiet, lambda: simulate(
+                           "bprr", lat, topo,
+                           lww_write_op(torch.as_tensor(blocks,
+                                                        device="cuda")),
+                           active, quiet, faults=sched))
+    check(same_run(got, want) and got.convergence_round() >= 0,
+          "lww bprr under 10% loss: cuda differs from cpu or did not "
+          "converge")
+    runs += 1
+    x0 = tuple(join_x0(15, u, 0.25, tile=1024, value=v, dtype=torch.int32)
+               for v in (1, 7))
+    spec = DigestSpec(DIGEST_BLOCK)
+    want = simulate("digest_driven", lat, topo, no_op, 0, 12, x0=x0,
+                    track_convergence=True, digest=spec, device="cpu")
+    for engine in ("reference", "fused", "mega"):
+        got = launches.run(
+            f"lww join digest_driven {engine}", "reference", "digest_driven",
+            12, lambda e=engine: simulate(
+                "digest_driven", lat, topo, no_op, 0, 12, x0=x0,
+                track_convergence=True, digest=spec, engine=e))
+        check(same_run(got, want) and got.convergence_round() >= 0,
+              f"lww digest_driven join {engine}: cuda differs from cpu or "
+              f"did not converge")
+        runs += 1
+    wall = time.perf_counter() - t0
+    print(f"lww faults and resync: {runs} runs equal to the CPU "
+          f"({wall:.1f} s)", flush=True)
+    log["lww_small"] = {"runs": runs, "wall_s": wall}
+
+
+def quickstart_phase(check, log):
+    """``repro_torch.quickstart`` on the card and on the CPU: the same
+    numbers, and ``delta_extract`` launched on the card."""
+    from repro_torch import kernels, quickstart
+
+    before = kernels.launch_counts()["delta_extract"]
+    t0 = time.perf_counter()
+    card = quickstart.run("cuda")
+    cpu = quickstart.run("cpu")
+    wall = time.perf_counter() - t0
+    launched = kernels.launch_counts()["delta_extract"] - before
+    check(card == cpu, f"quickstart: card {card} vs cpu {cpu}")
+    check(launched == 1, f"quickstart: delta_extract launched {launched} "
+                         f"times")
+    log["quickstart"] = {"card": card, "wall_s": wall}
+
+
 def profile_rounds(check, tag, run):
     """``torch.profiler`` over one call of ``run`` (after a warm-up call):
     device time by kernel, and the device's busy share of the wall time.
@@ -887,11 +1250,12 @@ def profile_rounds(check, tag, run):
 
 def profile_phase(check, log):
     """Where a round's time goes: 3 active GMap rounds (4,194,304 keys,
-    mesh, bprr) per kernel engine, and 3 digest_driven rounds of the GMap
-    join (a) on ``fused``. Informs PERF.md."""
+    mesh, bprr) per kernel engine, 3 LWWMap rounds of phase 6 (reference),
+    and 3 digest_driven rounds of the GMap join (a) on ``fused``. Informs
+    PERF.md."""
     import torch
 
-    from repro_torch.core import GMap
+    from repro_torch.core import GMap, LWWMap
     from repro_torch.sync import DigestSpec, simulate, topology
     from repro_torch.sync import workloads as W
 
@@ -903,6 +1267,13 @@ def profile_phase(check, log):
         out[engine] = profile_rounds(
             check, f"gmap mesh bprr {engine}",
             lambda e=engine: simulate("bprr", lat, topo, op, 3, 0, engine=e))
+    blocks = torch.as_tensor(W.gmap_key_blocks(15, SCALE_KEYS, 10),
+                             device="cuda")
+    out["lww_reference"] = profile_rounds(
+        check, "lww mesh bprr reference",
+        lambda: simulate("bprr", LWWMap(SCALE_KEYS).lattice, topo,
+                         lww_write_op(blocks), 3, 0))
+    del blocks
     x0 = join_x0(15, SCALE_KEYS, 0.25, tile=1024, value=1,
                  dtype=torch.int32).cuda()
     out["digest_driven_fused"] = profile_rounds(
@@ -925,7 +1296,17 @@ SOURCES = {
                       "src/repro/kernels/digest.py:73"),
     "masked_extract": ("src/repro_torch/csrc/masked_extract.cu",
                        "src/repro/kernels/digest.py:125"),
+    "join": ("src/repro_torch/csrc/join.cu", "src/repro/kernels/join.py:37"),
+    "delta_extract": ("src/repro_torch/csrc/delta_extract.cu",
+                      "src/repro/kernels/delta_extract.py:50"),
+    "lex_join_delta": ("src/repro_torch/csrc/lex_join.cu",
+                       "src/repro/kernels/lex_join.py:43"),
 }
+# the kernels of the sync engines' main path (phases 4-5) and of the
+# lex-pair one (phase 6: the public elementwise entry points)
+SYNC_KERNELS = ("round_step", "round_recv", "buffer_fold", "digest_blocks",
+                "masked_extract")
+ELEMENTWISE = ("join", "delta_extract", "lex_join_delta")
 
 
 def main() -> int:
@@ -974,9 +1355,15 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     grid_errs = timed("kernel_grid", kernel_grid, check, dev, log)
-    timings = timed("kernel_timings", kernel_timings, check, dev, log)
+    grid_errs.update(timed("elementwise_grid", elementwise_grid, check, dev,
+                           log))
+    timings = {name: t + (None,) for name, t in timed(
+        "kernel_timings", kernel_timings, check, dev, log).items()}
+    timings.update(timed("elementwise_timings", elementwise_timings, check,
+                         dev, log))
 
-    # 4 + 5. the main path, with the launch counters zeroed around it
+    # 4 + 5. the sync engines' main path, with the launch counters zeroed
+    # around it
     kernels.reset_launches()
     expect = Launches(check)
     timed("paper", paper_phase, check, expect, log)
@@ -986,19 +1373,38 @@ def main() -> int:
     launches = kernels.launch_counts()
     check(launches == expect.total, f"main-path launches {launches}, the "
                                     f"runs' rounds give {expect.total}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
+    for name in SYNC_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the main "
+                                  f"path")
+
+    # 6. the lex-pair main path (LWWMap, the merge entry points, the
+    # quickstart), with the counters zeroed around it: the simulations
+    # launch nothing, the merges one join, one delta_extract and two
+    # lex_join_delta, the quickstart one delta_extract
+    kernels.reset_launches()
+    expect3 = Launches(check)
+    timed("lww", lww_phase, check, expect3, log)
+    timed("lww_small", lww_small_phase, check, expect3, log)
+    timed("quickstart", quickstart_phase, check, log)
+    launches3 = kernels.launch_counts()
+    want3 = dict(expect3.total, join=1, delta_extract=2, lex_join_delta=2)
+    check(launches3 == want3, f"lex-pair main-path launches {launches3}, "
+                              f"expected {want3}")
+    for name in ELEMENTWISE:
+        check(launches3[name] > 0, f"{name} was never launched on the "
+                                   f"lex-pair main path")
+        launches[name] = launches3[name]
     timed("profile", profile_phase, check, log)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
-        e, ms, plain_ms, b_ms, b_by = timings[name]
+        e, ms, plain_ms, b_ms, b_by, lib_ms = timings[name]
         err = max(e, grid_errs[name])
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "equal": err == 0, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": lib_ms})
     log["kernels"] = rows
     log["failed"] = check.failed
     out = REPO / "chiprun_out"

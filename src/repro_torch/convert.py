@@ -10,7 +10,8 @@ are contiguous operands of the port's kernels: the per-origin buffer
 [N, P, nB, 3] ↔ [P, N, nB, 3], have-one flags [N, P] ↔ [P, N]); the carry
 converters swap those two axes. BitGSet words and digests change type:
 uint32 in numpy, int32 bit-views in torch (same bits). Bool (GSet) stays
-bool.
+bool. A tuple state (an LWWMap's ``(t, v)``, a product's components) and
+its buffers cross leaf by leaf, each leaf's slot axis swapped alike.
 """
 
 from __future__ import annotations
@@ -18,36 +19,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.lattice import tree_leaves, tree_map
 from repro_torch.sync.algorithms import AlgoCarry
 from repro_torch.sync.topology import Topology, from_tables
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """numpy array -> tensor on ``device``; uint32 words become int32
-    bit-views."""
+def _leaf_to_torch(a, device):
     a = np.array(a, order="C")          # a writable, contiguous copy
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a).to(device)
 
 
-def to_numpy(t: torch.Tensor, words: bool = False) -> np.ndarray:
-    """tensor -> numpy array; ``words=True`` returns int32 bit-views as the
-    JAX package's uint32 words."""
-    a = t.detach().cpu().numpy()
-    return a.view(np.uint32) if words else a
+def to_torch(a, device="cpu"):
+    """numpy array (or a tuple state of them) -> tensor(s) on ``device``;
+    uint32 words become int32 bit-views."""
+    return tree_map(lambda leaf: _leaf_to_torch(leaf, device), a)
+
+
+def to_numpy(t, words: bool = False):
+    """tensor (or a tuple state of them) -> numpy array(s); ``words=True``
+    returns int32 bit-views as the JAX package's uint32 words."""
+
+    def leaf(a):
+        a = a.detach().cpu().numpy()
+        return a.view(np.uint32) if words else a
+
+    return tree_map(leaf, t)
 
 
 def _per_slot(x, buf) -> bool:
     """A buffer with one axis more than the states holds slots."""
-    return buf is not None and buf.ndim == x.ndim + 1
+    return buf is not None and \
+        np.ndim(tree_leaves(buf)[0]) == np.ndim(tree_leaves(x)[0]) + 1
 
 
 def carry_to_torch(x, buf, buf_elems, aux=None, device="cpu") -> AlgoCarry:
     """A JAX ``AlgoCarry``'s leaves (numpy) -> the port's carry."""
-    x, buf = np.asarray(x), None if buf is None else np.asarray(buf)
     if _per_slot(x, buf):
-        buf = buf.swapaxes(0, 1)
+        buf = tree_map(lambda a: np.asarray(a).swapaxes(0, 1), buf)
     if aux is not None:
         aux = tuple(to_torch(np.asarray(a).swapaxes(0, 1), device)
                     for a in aux)
@@ -62,7 +72,7 @@ def carry_to_numpy(carry: AlgoCarry, words: bool = False):
     JAX package's types (digests as uint32 words)."""
     buf, aux = carry.buf, carry.aux
     if _per_slot(carry.x, buf):
-        buf = buf.movedim(0, 1)
+        buf = tree_map(lambda a: a.movedim(0, 1), buf)
     if aux is not None:
         dig, have = aux
         aux = (to_numpy(dig.movedim(0, 1), words=True),

@@ -1,8 +1,17 @@
-"""Lattices and dense CRDT types (PyTorch)."""
+"""Lattices, their constructions and the CRDT types (PyTorch)."""
 
-from repro_torch.core.lattice import Lattice, MapLattice
-from repro_torch.core.types import BitGSet, GCounter, GMap, GSet, popcount32
-from repro_torch.core.value_lattices import ValueLattice, max_int, or_bool
+from repro_torch.core import value_lattices
+from repro_torch.core.lattice import (Lattice, MapLattice, decompose_dense,
+                                      join_all, leq_from_join, linear_sum,
+                                      product, tree_leaves, tree_map)
+from repro_torch.core.types import (BitGSet, GCounter, GMap, GSet,
+                                    LexCounter, LWWMap, PNCounter,
+                                    popcount32)
+from repro_torch.core.value_lattices import (ValueLattice, lex_pair,
+                                             max_int, or_bool)
 
-__all__ = ["BitGSet", "GCounter", "GMap", "GSet", "Lattice", "MapLattice",
-           "ValueLattice", "max_int", "or_bool", "popcount32"]
+__all__ = ["BitGSet", "GCounter", "GMap", "GSet", "Lattice", "LexCounter",
+           "LWWMap", "MapLattice", "PNCounter", "ValueLattice",
+           "decompose_dense", "join_all", "leq_from_join", "lex_pair",
+           "linear_sum", "max_int", "or_bool", "popcount32", "product",
+           "tree_leaves", "tree_map", "value_lattices"]

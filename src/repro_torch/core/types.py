@@ -1,10 +1,12 @@
 """Concrete state-based CRDTs (paper §II-A, Appendix B), PyTorch counterpart
-of ``repro.core.types`` for the dense types: GCounter, GSet, BitGSet, GMap.
+of ``repro.core.types``: GCounter, PNCounter, GSet, BitGSet, GMap, LWWMap
+and LexCounter.
 
 Each type bundles a ``Lattice`` with its mutators m and optimal δ-mutators
-mᵟ(x) = Δ(m(x), x). States are plain tensors; element, key and replica
-identifiers are integer indices into a fixed universe. Mutators never
-modify their arguments.
+mᵟ(x) = Δ(m(x), x). States are plain tensors, or tuples of tensors for the
+product (PNCounter) and the lex-pair maps (LWWMap, LexCounter); element,
+key and replica identifiers are integer indices into a fixed universe,
+indexing the trailing axis. Mutators never modify their arguments.
 
 BitGSet words are uint32 in the JAX package. Torch has no unsigned 32-bit
 arithmetic on the CPU, so here they are int32 bit-views of the same words:
@@ -19,7 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import value_lattices as vl
-from repro_torch.core.lattice import Lattice, MapLattice
+from repro_torch.core.lattice import Lattice, MapLattice, product
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 
@@ -59,6 +61,47 @@ class GCounter:
 
     def value(self, p):
         return p.sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PNCounter:
+    """Increment/decrement counter: the product of two GCounters
+    (Appendix B: A × B)."""
+
+    num_replicas: int
+
+    @property
+    def lattice(self) -> Lattice:
+        g = MapLattice(self.num_replicas, vl.max_int(), "g").build()
+        return product("pncounter", (g, g))
+
+    def inc(self, s, i):
+        p, n = s
+        p = p.clone()
+        p[..., i] += 1
+        return (p, n)
+
+    def dec(self, s, i):
+        p, n = s
+        n = n.clone()
+        n[..., i] += 1
+        return (p, n)
+
+    def inc_delta(self, s, i):
+        p, n = s
+        d = torch.zeros_like(p)
+        d[..., i] = p[..., i] + 1
+        return (d, torch.zeros_like(n))
+
+    def dec_delta(self, s, i):
+        p, n = s
+        d = torch.zeros_like(n)
+        d[..., i] = n[..., i] + 1
+        return (torch.zeros_like(p), d)
+
+    def value(self, s):
+        p, n = s
+        return p.sum(-1) - n.sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,3 +203,62 @@ class GMap:
     def bump_delta(self, m, key_mask):
         """mᵟ: only the updated entries, at their new versions (optimal)."""
         return torch.where(key_mask, m + 1, torch.zeros_like(m))
+
+
+@dataclasses.dataclass(frozen=True)
+class LWWMap:
+    """Keys ↪ lexicographic (timestamp, value) pairs — Retwis walls and
+    timelines. States are ``(t, v)`` int32 tuples."""
+
+    num_keys: int
+
+    @property
+    def lattice(self) -> Lattice:
+        return MapLattice(self.num_keys, vl.lex_pair(), "lwwmap").build()
+
+    def put(self, s, key, ts, val):
+        t, v = s
+        t, v = t.clone(), v.clone()
+        t[..., key] = ts
+        v[..., key] = val
+        return (t, v)
+
+    def put_delta(self, s, key, ts, val):
+        t, v = s
+        dt, dv = torch.zeros_like(t), torch.zeros_like(v)
+        dt[..., key] = ts
+        dv[..., key] = val
+        return (dt, dv)
+
+
+@dataclasses.dataclass(frozen=True)
+class LexCounter:
+    """Replicas ↪ (ℕ ⊠ ℕ) — a Cassandra-style counter (Appendix B: the
+    single-writer principle keeps the lex product distributive: the first
+    component is a chain and only the owner writes its own entry)."""
+
+    num_replicas: int
+
+    @property
+    def lattice(self) -> Lattice:
+        return MapLattice(self.num_replicas, vl.lex_pair(),
+                          "lexcounter").build()
+
+    def set_value(self, s, i, val):
+        """Owner i sets its entry to an arbitrary value, bumping the
+        version."""
+        t, v = s
+        t, v = t.clone(), v.clone()
+        t[..., i] += 1
+        v[..., i] = val
+        return (t, v)
+
+    def set_value_delta(self, s, i, val):
+        t, v = s
+        dt, dv = torch.zeros_like(t), torch.zeros_like(v)
+        dt[..., i] = t[..., i] + 1
+        dv[..., i] = val
+        return (dt, dv)
+
+    def value(self, s):
+        return s[1].sum(-1)

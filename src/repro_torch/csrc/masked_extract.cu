@@ -25,12 +25,6 @@
 
 #include "common.cuh"
 
-template <class T>
-union Chunk {
-  uint4 v;
-  T e[16 / sizeof(T)];
-};
-
 template <class T, bool VEC>
 __global__ void extract_kernel(const T* __restrict__ x,
                                const int32_t* __restrict__ masks,

@@ -28,16 +28,20 @@ from repro_torch.core.types import popcount32
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("buffer_fold", "digest_blocks", "masked_extract", "round_recv",
-           "round_step")
+SOURCES = ("buffer_fold", "delta_extract", "digest_blocks", "join",
+           "lex_join", "masked_extract", "round_recv", "round_step")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Element kinds of the kernels: (kernel kind, element dtype) -> launch code.
 # Bool states travel as a zero-copy uint8 view ({0, 1}: or ≡ max); BitGSet
-# words travel as int32 bit-views and are unsigned inside the kernels.
+# words travel as int32 bit-views and are unsigned inside the kernels. The
+# sync kernels take SYNC_KINDS; the elementwise kernels (join,
+# delta_extract) also take int8 max, with signed compares.
 KIND_CODES = {("max", torch.uint8): 0, ("max", torch.int32): 1,
-              ("bitor", torch.int32): 2}
+              ("bitor", torch.int32): 2, ("max", torch.int8): 3}
+SYNC_KINDS = (("max", torch.uint8), ("max", torch.int32),
+              ("bitor", torch.int32))
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -135,14 +139,15 @@ def ptr(t) -> ctypes.c_void_p:
 
 # -- checks shared by the wrappers --------------------------------------------
 
-def kernel_view(t: torch.Tensor, kind: str) -> torch.Tensor:
+def kernel_view(t: torch.Tensor, kind: str,
+                kinds=SYNC_KINDS) -> torch.Tensor:
     """The view a kernel takes of a state tensor: bool as uint8 (zero-copy),
-    uint8/int32 as they are. Raises on anything else."""
+    the other dtypes of ``kinds`` as they are. Raises on anything else."""
     if t.dtype == torch.bool:
         t = t.view(torch.uint8)
-    if (kind, t.dtype) not in KIND_CODES:
+    if (kind, t.dtype) not in kinds:
         raise TypeError(f"kernel kind {kind!r} does not take {t.dtype}; "
-                        f"expected one of {sorted(KIND_CODES)}")
+                        f"expected one of {sorted(map(str, kinds))}")
     return t
 
 

@@ -23,6 +23,11 @@ slots, by prefix/suffix joins (``loo="prefix"``) or the direct O(P²) fold
 ``n`` is ``d_all[q, n]``. The JAX package keeps the node axis first;
 ``repro_torch.convert`` swaps the two axes of a carried buffer.
 
+States are one tensor (the dense lattices) or a tuple of tensors (lex
+pairs, products); the reference round acts on every leaf through
+``sync/treeops.py``. Lattices without a dense kernel kind (every tuple
+state) run on the reference engine whatever engine is asked for.
+
 Faults (``sync/faults.py``): ``round_step`` optionally takes one round's
 ``RoundFaults``. Down nodes send and receive nothing; a node whose sends
 were not all delivered *retains* its δ-buffer instead of clearing it. The
@@ -36,6 +41,7 @@ device value on the host, so a loop of rounds only queues device work.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -62,8 +68,8 @@ class RoundMetrics(NamedTuple):
 
 
 class AlgoCarry(NamedTuple):
-    x: torch.Tensor                # [N, U] lattice states
-    buf: Optional[torch.Tensor]    # None | [N, U] | [P+1, N, U] | [P, N, U]
+    x: object                      # [N, U] lattice states (or a tuple)
+    buf: object                    # None | [N, U] | [P+1, N, U] | [P, N, U]
     buf_elems: torch.Tensor        # int32 [N] buffered entry elements
     aux: Optional[tuple] = None    # digest_driven: (int32 [P, N, nB, 3]
                                    # remote digests, bool [P, N] have-one)
@@ -98,6 +104,13 @@ class SyncAlgorithm:
     @property
     def device(self) -> torch.device:
         return self.topo.nbrs.device
+
+    @functools.cached_property
+    def bottom_shape(self):
+        """The lattice's ⊥ on the meta device: the shapes (and so the
+        universe ranks) of its leaves, which align masks per leaf, without
+        memory."""
+        return self.lattice.bottom("meta")
 
     @property
     def is_resync(self) -> bool:
@@ -149,7 +162,7 @@ class SyncAlgorithm:
     def init(self, x0=None) -> AlgoCarry:
         n, p = self.topo.num_nodes, self.topo.max_degree
         bot = self.lattice.bottom(self.device)
-        x = T.bcast(bot, (n,)) if x0 is None else x0.to(self.device)
+        x = T.bcast(bot, (n,)) if x0 is None else T.to(x0, self.device)
         aux = None
         if self.name == "digest_driven":
             nb = self.digest_spec.num_blocks(D.state_universe(bot))
@@ -187,7 +200,7 @@ class SyncAlgorithm:
                         acc = slots[o] if acc is None else lat.join(acc, slots[o])
                 outs.append(acc)
         else:
-            bot = torch.zeros_like(slots[0])
+            bot = T.zeros_like(slots[0])
             prefix, suffix = [None] * (p + 1), [None] * (p + 1)
             acc = bot
             for k in range(p + 1):
@@ -198,13 +211,14 @@ class SyncAlgorithm:
                 suffix[k] = acc
                 acc = lat.join(acc, slots[k])
             outs = [lat.join(prefix[j], suffix[j]) for j in range(p)]
-        return torch.stack(outs)                           # [P, N, U]
+        return T.stack(outs)                               # [P, N, U]
 
     def _bcast_sends(self, state):
         """One per-node state over the P send slots: [N, U] -> [P, N, U]
         (a broadcast view)."""
         p = self.topo.max_degree
-        return state.unsqueeze(0).expand((p,) + tuple(state.shape))
+        return T.tree_map(lambda a: a.unsqueeze(0).expand(
+            (p,) + tuple(a.shape)), state)
 
     # -- one synchronous round -----------------------------------------------
 
@@ -252,10 +266,10 @@ class SyncAlgorithm:
         if self.has_buffer:
             dlv = self.delivered(faults)
             if dlv is None:
-                buf = torch.zeros_like(buf)
+                buf = T.zeros_like(buf)
                 buf_elems = torch.zeros_like(buf_elems)
             else:
-                buf = torch.where(dlv[:, None], buf.new_zeros(()), buf)
+                buf = T.where_lead(~dlv, buf, 0, self.bottom_shape)
                 buf_elems = torch.where(dlv, 0, buf_elems)
 
         # (4) receive all messages, sequentially per slot  [Alg 2, lines 14-17]
@@ -272,13 +286,12 @@ class SyncAlgorithm:
 
     # -- anti-entropy resync rounds -------------------------------------------
 
-    @staticmethod
-    def _slot_where(cond, a, b):
+    def _slot_where(self, cond, a, b):
         """Select between two slot-major [P, N, U] states by a [N, P]
         node-major mask. The mask is transposed into a contiguous copy:
         a transposed view would lay the result out transposed too, and
         the kernels take contiguous operands."""
-        return torch.where(cond.T.contiguous()[..., None], a, b)
+        return T.where_lead(cond.T.contiguous(), a, b, self.bottom_shape)
 
     def _join_inbox(self, x, inbox):
         """x ⊔ every (pre-masked) inbox slot [P, N, U], in slot order: one
@@ -287,7 +300,7 @@ class SyncAlgorithm:
         if self.resolved_engine in engine_mod.KERNEL_ENGINES:
             return engine_mod.fused_join_inbox(self, x, inbox)
         for q in range(self.topo.max_degree):
-            x = self.lattice.join(x, inbox[q])
+            x = self.lattice.join(x, T.slot(inbox, q))
         return x
 
     def _resync_round(self, carry: AlgoCarry, op_delta, faults=None):
@@ -331,7 +344,7 @@ class SyncAlgorithm:
             dig, dvalid = aux                      # [P, N, nB, 3], [P, N]
             spec = self.digest_spec
             kind = lat.kernel_kind or "max"
-            u = D.state_universe(lat.bottom())
+            u = D.state_universe(self.bottom_shape)
             if kernels:
                 local_dig = engine_mod.fused_digest(x, spec, kind)
             else:
@@ -342,7 +355,8 @@ class SyncAlgorithm:
                 d_all = engine_mod.fused_extract(x, blocks, spec)
             else:
                 em = D.block_mask_to_elems(blocks, u, spec)
-                d_all = D.extract_blocks(x[None], em)          # [P, N, U]
+                d_all = D.extract_blocks(
+                    T.tree_map(lambda a: a[None], x), em)      # [P, N, U]
             # The digest exchange is priced as the Merkle-descent
             # transcript between the two current trees, capped at the flat
             # leaf layer; an undelivered exchange costs the unanswered
@@ -404,8 +418,8 @@ class SyncAlgorithm:
         recv_valid = self.recv_valid(faults)
         for q in range(topo.max_degree):
             valid = recv_valid[:, q]
-            d = T.where_bot(valid, d_all[topo.rev[:, q].long(),
-                                         topo.nbrs[:, q].long()])
+            d = T.where_bot(valid, T.gather(d_all, topo.rev[:, q].long(),
+                                            topo.nbrs[:, q].long()))
             if self.name == "state":
                 cpu = cpu + self.msum(lat.size(d), acc)
                 x = lat.join(x, d)

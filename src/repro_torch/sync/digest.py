@@ -18,9 +18,11 @@ The JAX package's digests are uint32. Torch has no unsigned 32-bit
 arithmetic, so here a digest is an int32 bit-view of the same words, and
 the arithmetic runs on int64 holding values in [0, 2³²): every product and
 sum is reduced mod 2³² (``_mul32``, ``_mod32``), every max compares the
-unsigned values. The CUDA ``digest_blocks`` kernel computes the same words.
-The port's states are single tensors, so a state has one leaf (the JAX
-package's per-leaf combination is the identity for one leaf).
+unsigned values. The CUDA ``digest_blocks`` kernel computes the same words
+for one-tensor states. A tuple state (an LWWMap's lex pairs) digests each
+leaf and combines them with odd per-leaf multipliers, as the JAX package
+does (the identity for one leaf); such lattices run on the reference
+engine.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.lattice import tree_leaves, tree_map
+
 # Mixing constants (Knuth / murmur-style multiplicative hashing), the JAX
 # package's; all arithmetic is mod 2³², so sums agree in any order.
 WMUL = 0x85EBCA77
-LEAF_MUL = 0x27D4EB2F   # per-leaf multiplier of multi-leaf states (none here)
+LEAF_MUL = 0x27D4EB2F   # per-leaf multiplier of multi-leaf states
 PAIR_L = 0xC2B2AE35
 PAIR_R = 0x165667B1
 MIX1, MIX2 = 0x7FEB352D, 0x846CA68B
@@ -63,13 +67,18 @@ class DigestSpec:
         return CHANNELS * self.num_blocks(universe)
 
 
-def state_universe(state: torch.Tensor) -> int:
-    """Trailing universe extent of a digestable state. Raises ValueError
-    for a state without one (rank 0)."""
-    if state.ndim == 0:
-        raise ValueError("digest sync needs map-like states with a trailing "
-                         f"universe axis; got shape {tuple(state.shape)}")
-    return state.shape[-1]
+def state_universe(state) -> int:
+    """Shared trailing universe extent of a digestable state's leaves.
+    Raises ValueError for a state without one (a rank-0 leaf, or leaves
+    whose trailing axes differ: linear sums, products of unequal maps)."""
+    leaves = tree_leaves(state)
+    dims = {leaf.shape[-1] if leaf.ndim else None for leaf in leaves}
+    if None in dims or len(dims) != 1:
+        raise ValueError(
+            "digest sync needs map-like states whose leaves share one "
+            "trailing universe axis; got leaf shapes "
+            f"{[tuple(leaf.shape) for leaf in leaves]}")
+    return dims.pop()
 
 
 def digestable(lattice) -> bool:
@@ -133,16 +142,13 @@ def pos_weights(be: int, device=None) -> torch.Tensor:
     return _mul32(2 * pos + 1, WMUL)
 
 
-def digest_state(state: torch.Tensor, spec: DigestSpec,
-                 kind: str = "max") -> torch.Tensor:
-    """Digest states [..., U] -> int32 bit-views [..., num_blocks, 3]
-    (channels hash, count, agg). The last block is zero-padded before
-    hashing, so a position past U hashes as the value 0 (and adds nothing
-    to count or agg)."""
+def _leaf_digest(leaf: torch.Tensor, spec: DigestSpec, kind: str):
+    """``(hash, count, agg)`` of one leaf [..., U], each int64 [..., nB]
+    holding 32-bit values."""
     be = spec.block_elems
-    u = state_universe(state)
+    u = leaf.shape[-1]
     nb = spec.num_blocks(u)
-    v = _u32(state)
+    v = _u32(leaf)
     pad = nb * be - u
     if pad:
         v = torch.nn.functional.pad(v, (0, pad))
@@ -153,6 +159,26 @@ def digest_state(state: torch.Tensor, spec: DigestSpec,
                .sum(-1))
     cnt = (v != 0).sum(-1)
     agg = or_fold(v) if kind == "bitor" else v.amax(-1)
+    return h, cnt, agg
+
+
+def digest_state(state, spec: DigestSpec, kind: str = "max") -> torch.Tensor:
+    """Digest states [..., U] -> int32 bit-views [..., num_blocks, 3]
+    (channels hash, count, agg). The last block is zero-padded before
+    hashing, so a position past U hashes as the value 0 (and adds nothing
+    to count or agg). Leaf i of a tuple state adds its hash times the odd
+    multiplier 1 (i = 0) or (2i + 1)·LEAF_MUL, its count, and its agg to
+    the unsigned max, all mod 2³²."""
+    state_universe(state)
+    h = cnt = agg = None
+    for i, leaf in enumerate(tree_leaves(state)):
+        lh, lc, la = _leaf_digest(leaf, spec, kind)
+        if h is None:
+            h, cnt, agg = lh, lc, la
+            continue
+        h = _mod32(h + _mul32(lh, ((2 * i + 1) * LEAF_MUL) & M32))
+        cnt = _mod32(cnt + lc)
+        agg = torch.maximum(agg, la)
     return _to_i32(torch.stack([h, cnt, agg], -1))
 
 
@@ -168,10 +194,12 @@ def block_mask_to_elems(mask: torch.Tensor, universe: int,
     return mask.repeat_interleave(spec.block_elems, dim=-1)[..., :universe]
 
 
-def extract_blocks(state: torch.Tensor, elem_mask: torch.Tensor):
+def extract_blocks(state, elem_mask: torch.Tensor):
     """Δ(state, block_mask): the state restricted to masked slots (⊥
-    outside); whole slots are kept or dropped."""
-    return torch.where(elem_mask, state, state.new_zeros(()))
+    outside); whole slots are kept or dropped, so the result is a valid
+    sub-state of any map-like lattice (lex pairs included)."""
+    return tree_map(lambda a: torch.where(elem_mask, a, a.new_zeros(())),
+                    state)
 
 
 # -- Merkle roll-up and the descent cost model ----------------------------------

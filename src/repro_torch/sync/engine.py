@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lattice import tree_map
 from repro_torch.kernels import ops as kops
 
 ENGINES = ("reference", "fused", "mega")
@@ -52,8 +53,10 @@ def gather_inbox(d_all, topo):
     — the [P, N, U] sends to the [P, N, U] inbox ``round_recv`` takes, in
     one gather. Padding slots carry node 0's sends; the kernel's active
     mask suppresses them. Indexing a broadcast view may lay the result out
-    in another order, and the kernel takes it contiguous."""
-    return d_all[topo.rev.T.long(), topo.nbrs.T.long()].contiguous()
+    in another order, and the kernel takes it contiguous. A tuple state
+    (reference engine only) is gathered leaf by leaf."""
+    rev, nbrs = topo.rev.T.long(), topo.nbrs.T.long()
+    return tree_map(lambda a: a[rev, nbrs].contiguous(), d_all)
 
 
 def fold_slots(stack, kind: str):

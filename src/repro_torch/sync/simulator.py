@@ -42,7 +42,8 @@ class SimResult(NamedTuple):
     mem: np.ndarray                # [T] elements held (cluster total)
     cpu: np.ndarray                # [T] element-ops per round
     max_mem_node: np.ndarray       # [T] worst single-node memory
-    final_x: torch.Tensor          # [N, ...U] final states, on the sim device
+    final_x: object                # [N, ...U] final states (a tensor, or a
+                                   # tuple for tuple states), on the sim device
     uniform: Optional[np.ndarray]  # [T] bool all nodes identical at round
                                    # end (None when tracking was off)
 
@@ -79,7 +80,7 @@ def first_stable_round(uniform):
 def cluster_uniform(lattice: Lattice, x) -> torch.Tensor:
     """All nodes hold the same state: ⊑ both ways against node 0. A 0-d
     bool tensor (no host read)."""
-    xb = x[:1].expand_as(x)
+    xb = T.tree_map(lambda a: a[:1].expand_as(a), x)
     return torch.all(lattice.leq(x, xb) & lattice.leq(xb, x))
 
 
@@ -173,11 +174,11 @@ def simulate(
     for t in range(total):
         rf = None if views is None else views.at_round(t)
         if t < active_rounds:
-            delta = op_fn(carry.x, t).to(carry.x.dtype)
+            delta = T.cast_like(op_fn(carry.x, t), carry.x)
             if rf is not None:                  # a down node executes no ops
                 delta = T.where_bot(rf.up, delta)
         else:
-            delta = torch.zeros_like(carry.x)
+            delta = T.zeros_like(carry.x)
         carry, m = alg.round_step(carry, delta, rf)
         metrics.append(m)
         if track_convergence:

@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from repro_torch import convert, kernels
-from repro_torch.core import GCounter, GMap, GSet
+from repro_torch.core import GCounter, GMap, GSet, LWWMap
 from repro_torch.kernels import buffer_fold as kfold
+from repro_torch.kernels import delta_extract as kdelta
 from repro_torch.kernels import digest_blocks as kdig
+from repro_torch.kernels import join as kjoin
+from repro_torch.kernels import lex_join as klex
 from repro_torch.kernels import masked_extract as kext
 from repro_torch.kernels import ops
 from repro_torch.kernels import round_recv as krecv
@@ -217,7 +220,8 @@ def expected_launches(engine, algo, rounds):
             "digest_blocks": rounds if kern and algo == "digest_driven"
             else 0,
             "masked_extract": rounds if kern and algo == "digest_driven"
-            else 0}
+            else 0,
+            "join": 0, "delta_extract": 0, "lex_join_delta": 0}
 
 
 @pytest.mark.cuda
@@ -246,3 +250,146 @@ def test_faulted_simulate_on_the_card_matches_the_cpu(sm90, algo):
             np.testing.assert_array_equal(getattr(got, nm),
                                           getattr(want, nm))
         assert torch.equal(got.final_x.cpu(), want.final_x)
+
+
+# -- the elementwise kernels (join, delta_extract, lex_join_delta) -------------
+
+ELEMENTWISE = {"max_u8": ("max", np.uint8), "max_i8": ("max", np.int8),
+               "max_i32": ("max", np.int32), "max_bool": ("max", np.bool_),
+               "bitor_u32": ("bitor", np.uint32)}
+SHAPES = [(64,), (1000,), (7, 333), (3, 5, 129), (1, 4099)]
+
+
+def elementwise_state(rng, kind_name, shape):
+    dt = ELEMENTWISE[kind_name][1]
+    if dt == np.bool_:
+        return rng.integers(0, 2, size=shape).astype(bool)
+    if dt == np.uint32:
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    if dt == np.int8:
+        return rng.integers(-128, 128, size=shape).astype(np.int8)
+    return rng.integers(0, 9, size=shape).astype(dt)
+
+
+def views(a, b, dev, offset):
+    """The pair on the CPU and on the card; ``offset`` > 0 makes the card's
+    operands views that start ``offset`` elements into a larger buffer (not
+    16-byte aligned: the kernels take their scalar path)."""
+    cpu = (convert.to_torch(a), convert.to_torch(b))
+    if not offset:
+        return cpu, tuple(t.to(dev) for t in cpu)
+    card = []
+    for t in cpu:
+        flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+        flat[offset:] = t.reshape(-1).to(dev)
+        card.append(flat[offset:].view(t.shape))
+    return cpu, tuple(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(ELEMENTWISE))
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_join_kernel_vs_plain(sm90, kind_name, shape, offset, rng):
+    kind = ELEMENTWISE[kind_name][0]
+    cpu, card = views(elementwise_state(rng, kind_name, shape),
+                      elementwise_state(rng, kind_name, shape), sm90, offset)
+    n0 = kjoin.launches
+    got = ops.join(*card, kind=kind)
+    torch.cuda.synchronize()
+    assert kjoin.launches == n0 + 1
+    assert_equal(got, ops.join(*cpu, kind=kind), "join")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(ELEMENTWISE))
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_delta_extract_kernel_vs_plain(sm90, kind_name, shape, offset, rng):
+    kind = ELEMENTWISE[kind_name][0]
+    cpu, card = views(elementwise_state(rng, kind_name, shape),
+                      elementwise_state(rng, kind_name, shape), sm90, offset)
+    n0 = kdelta.launches
+    got = ops.delta_extract(*card, kind=kind)
+    torch.cuda.synchronize()
+    assert kdelta.launches == n0 + 1
+    assert got[2].device.type == "cuda" and got[2].dtype == torch.int32
+    for nm, g, w in zip(("s", "xj", "count"), got,
+                        ops.delta_extract(*cpu, kind=kind)):
+        assert_equal(g, w, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lex_join_delta_kernel_vs_plain(sm90, shape, offset, rng):
+    """Timestamps and values from a small signed range: ties, negative
+    values and ⊥ pairs are frequent."""
+    a = [rng.integers(-2, 4, size=shape).astype(np.int32) for _ in range(4)]
+    cpu_a, card_a = views(a[0], a[1], sm90, offset)
+    cpu_b, card_b = views(a[2], a[3], sm90, offset)
+    n0 = klex.launches
+    got = ops.lex_join_delta(card_a, card_b)
+    torch.cuda.synchronize()
+    assert klex.launches == n0 + 1
+    want = ops.lex_join_delta(cpu_a, cpu_b)
+    for nm, g, w in zip(("t", "v"), got[0], want[0]):
+        assert_equal(g, w, nm)
+    for nm, g, w in zip(("dt", "dv"), got[1], want[1]):
+        assert_equal(g, w, nm)
+    assert_equal(got[2], want[2], "count")
+
+
+@pytest.mark.cuda
+def test_elementwise_wrappers_refuse_non_contiguous_input(sm90):
+    a = torch.zeros((64, 8), dtype=torch.int32, device=sm90).T
+    with pytest.raises(ValueError):
+        ops.join(a, a)
+    with pytest.raises(ValueError):
+        ops.delta_extract(a, a)
+    with pytest.raises(ValueError):
+        ops.lex_join_delta((a, a), (a, a))
+
+
+def lww_op(n, u):
+    keys = torch.arange(n)[:, None] * 7 + torch.arange(3)
+
+    def op(x, t):
+        ts, vals = x
+        rows = torch.arange(n, device=ts.device)[:, None].expand(n, 3)
+        k = ((keys + t) % u).to(ts.device)
+        dt, dv = torch.zeros_like(ts), torch.zeros_like(vals)
+        dt[rows, k] = ts[rows, k] + 1
+        dv[rows, k] = ((rows * 3 + t) % 5 - 2).to(vals.dtype)
+        return (dt, dv)
+
+    return op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["classic", "bprr", "state_driven",
+                                  "digest_driven"])
+def test_lww_simulate_on_the_card_matches_the_cpu(sm90, algo):
+    """LWWMap under loss and churn from a divergent start: every engine
+    name runs the reference round, launches no kernel, and equals the CPU
+    run."""
+    topo = topology.partial_mesh(15, 4)
+    sched = FaultSchedule.bernoulli(topo, 8, 0.2, seed=3).compose(
+        FaultSchedule.churn(topo, 6, [(4, 2, 5)]))
+    u = 300
+    x0 = (torch.zeros((15, u), dtype=torch.int32),
+          torch.zeros((15, u), dtype=torch.int32))
+    x0[0][1:, :97], x0[1][1:, :97] = 2, -1
+    kw = dict(x0=x0, faults=sched, digest=DigestSpec(32))
+    lat, op = LWWMap(u).lattice, lww_op(15, u)
+    want = simulate(algo, lat, topo, op, 6, 6, device="cpu", **kw)
+    for engine in ENGINES:
+        kernels.reset_launches()
+        got = simulate(algo, lat, topo, op, 6, 6, engine=engine, **kw)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts().values()) == 0
+        for nm in ("tx", "mem", "cpu", "max_mem_node", "uniform"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+        for g, w in zip(got.final_x, want.final_x):
+            assert torch.equal(g.cpu(), w)

@@ -3,7 +3,8 @@ schedules, digests and digest kernels included) and ``chip_smoke.py`` pulls
 in neither ``jax`` nor the JAX package ``repro``, no source file of theirs
 imports either, and the entry points run on the card unless told otherwise —
 without a card, ``simulate`` with no ``device=`` raises instead of falling
-back to the CPU, for the δ-family and for a faulted resync run alike."""
+back to the CPU, for the δ-family, a faulted resync run and an LWWMap run
+alike."""
 
 import ast
 import subprocess
@@ -82,12 +83,25 @@ def test_entry_points_default_to_the_card():
         "r = simulate('digest_driven', GCounter(3).lattice, topology.ring(3),\n"
         "             workloads.gcounter_op(3), 2, faults=f, engine='mega',\n"
         "             device='cpu')\n"
+        "from repro_torch.core import LWWMap\n"
+        "from repro_torch.kernels import ops\n"
+        "lww = LWWMap(3).lattice\n"
+        "try:\n"
+        "    simulate('bprr', lww, topology.ring(3), lambda x, t: x, 2,\n"
+        "             engine='mega')\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n"
+        "simulate('bprr', lww, topology.ring(3), lambda x, t: x, 2,\n"
+        "         engine='mega', device='cpu')\n"
+        "a = torch.arange(8, dtype=torch.int32)\n"
+        "ops.join(a, a); ops.delta_extract(a, a)\n"
+        "ops.lex_join_delta((a, a), (a, a))\n"
         "print('CPU', r.total_tx, sum(kernels.launch_counts().values()),\n"
         "      sorted(kernels.KERNELS))\n")
     out = run_python(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED no CUDA device") == 2, out.stdout
-    # the CPU runs took the plain versions: no kernel was launched
-    assert "CPU" in out.stdout and " 0 ['buffer_fold', 'digest_blocks', " \
-        "'masked_extract', 'round_recv', 'round_step']" in out.stdout, \
-        out.stdout
+    assert out.stdout.count("RAISED no CUDA device") == 3, out.stdout
+    # the CPU runs and calls took the plain versions: no kernel was launched
+    assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
+        "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \
+        "'round_recv', 'round_step']" in out.stdout, out.stdout

@@ -208,6 +208,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                        rev=nbrs, kind="max", per_origin=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int8, torch.float32])
+def test_sync_wrappers_refuse_with_the_dtype_named(dtype):
+    """The sync kernels take bool/uint8/int32 (max) and int32 words (bitor)
+    only — not int8, which only the elementwise kernels take — and the
+    refusal names the dtype (building its message once sorted torch
+    dtypes, which raised a TypeError of its own)."""
+    x = torch.zeros((3, N, U), dtype=dtype)
+    for call in (lambda: ops.buffer_fold(x),
+                 lambda: ops.round_recv(x, x[0]),
+                 lambda: ops.digest_blocks(x[0], block_elems=8)):
+        with pytest.raises(TypeError, match=f"does not take {dtype}"):
+            call()
+
+
 def test_round_step_shared_memory_budget():
     """The paper's mesh takes a block of 32 columns x 15 node-threads in
     21 KB; beyond 32 nodes a block keeps 32 node-threads; a working set too
