@@ -14,11 +14,15 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    (int32, bool) and bitor (words with bit 31 set), buffers of
    K ∈ {0, 1, P+1}, extracts, the masked inbox, emit_stored/emit_cov,
    active/delivered masks with zeros (the fault masks), digest blocks
-   be ∈ {8, 32, 64, 128}, P ∈ {1, 4, 8} extraction masks all-zero, all-one
-   and random, N ∈ {9, 15, 40} and U off tile and block multiples; then
-   each timed (CUDA events, median of 25 samples of 5 back-to-back calls)
-   beside its plain version and its byte bound at the scale phase's
-   shapes; the elementwise kernels (join over max uint8 / int8 / int32 /
+   be ∈ {8, ..., 1,024}, P ∈ {1, 4, 8} extraction masks all-zero, all-one
+   and random, B = 2 configs, N ∈ {9, 15, 40}, U off tile and block
+   multiples (rows not 16-byte aligned), 16-byte aligned rows of whole and
+   ragged tiles, and views off 16 bytes; then each timed (CUDA events,
+   median of 25 samples of 5 back-to-back calls) beside its plain version
+   and its bound (bytes at 3.35 TB/s, int32 operations at the card's
+   int32 rate from its maximum SM clock) at the scale phase's shapes,
+   with the launch plan ``round_step`` and ``digest_blocks`` chose there
+   (which must be their 16-byte bulk-copy and vector paths); the elementwise kernels (join over max uint8 / int8 / int32 /
    bool and bitor, delta_extract likewise, lex_join_delta) at small shapes
    off multiples of 4 and 16 and at views not 16-byte aligned, then at
    [15, 4,194,304] int32 beside their plain versions, the single library
@@ -80,7 +84,8 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit peak
+INT32_LANES_PER_SM = 64          # Hopper: 16 INT32 lanes per SM sub-partition
+INT_OPS_PER_S = None             # set by main(): lanes x SMs x max SM clock
 REPS = 25                        # timed samples of a kernel
 BATCH = 5                        # back-to-back calls in one sample
 SCALE_RUNS = 5                   # timed runs of each scale configuration
@@ -151,15 +156,33 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query="name,power.limit") -> str:
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return "nvidia-smi: not available"
+
+
+def int_ops_per_s(check) -> float:
+    """The card's peak int32 rate: INT32_LANES_PER_SM lanes on every SM at
+    the maximum SM clock nvidia-smi reports (an H100 SXM at 1,980 MHz:
+    16.7e12 operations/s). Not the float32 rate: Hopper has half as many
+    int32 lanes as float32 lanes, and an integer operation is not an FMA
+    counted twice."""
+    import torch
+
+    smi = nvidia_smi("clocks.max.sm")
+    m = re.match(r"\s*(\d+(?:\.\d+)?)\s*MHz", smi)
+    check(m is not None, f"nvidia-smi clocks.max.sm unreadable: {smi!r}")
+    mhz = float(m.group(1)) if m else float("nan")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = INT32_LANES_PER_SM * sms * mhz * 1e6
+    print(f"int32 peak: {INT32_LANES_PER_SM} lanes x {sms} SMs x {mhz:.0f} "
+          f"MHz = {rate:.4g} ops/s", flush=True)
+    return rate
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -196,6 +219,11 @@ def kernel_grid(check, dev, log):
     for kind, tname in KINDS:
         dtype = {"int32": torch.int32, "bool": torch.bool,
                  "words": "words"}[tname]
+        # U = 1001: rows not 16-byte aligned (direct loads); 1024: whole
+        # bulk-copy tiles; 1000 int32: aligned rows, a ragged last tile
+        # (bool: not aligned); 4,096 bool: whole 512-column tiles; an
+        # offset view of aligned rows: direct loads
+        widths = (1001, 1024, 4096 if tname == "bool" else 1000, -1024)
         # N = 40: more nodes than a round_step block has node-threads
         for topo in (topology.partial_mesh(9, 4), topology.tree(15),
                      topology.partial_mesh(40, 4)):
@@ -205,9 +233,10 @@ def kernel_grid(check, dev, log):
                     ("state", 0, False, False), ("classic", 1, False, False),
                     ("bp", p + 1, True, False), ("rr", 1, False, True),
                     ("bprr", p + 1, True, True)):
-                for emit_inbox in (False, True):
-                    b, u = 2, 1001
-                    delta = rand_state(g, dtype, (b, n, u), dev)
+                for w in widths:
+                    b, u, off = 2, abs(w), int(w < 0)
+                    delta = offset_view(rand_state(g, dtype, (b, n, u), dev),
+                                        off)
                     x = rand_state(g, dtype, (b, n, u), dev)
                     buf = rand_state(g, dtype, (k, b, n, u), dev) if k else None
                     act = torch.randint(0, 2, (b, n, p), generator=g,
@@ -216,21 +245,25 @@ def kernel_grid(check, dev, log):
                     dlv = torch.randint(0, 2, (b, n), generator=g, device=dev,
                                         dtype=torch.int32) if k else None
                     args = (delta, x, buf, act, dlv, t.nbrs, t.rev)
-                    kw = dict(kind=kind, per_origin=per_origin,
-                              extracts=extracts, emit_inbox=emit_inbox)
-                    got = ks.round_step(*args, **kw)
                     views = [None if a is None else
                              (a.view(torch.uint8) if a.dtype == torch.bool else a)
                              for a in args]
-                    want = ks.plain(*views, **kw)
-                    want = tuple(None if w is None else
-                                 (w.view(torch.bool) if w.dtype == torch.uint8 else w)
-                                 for w in want)
-                    e = max_abs_err(got, want)
-                    errs["round_step"] = max(errs["round_step"], e)
-                    cases["round_step"] += 1
-                    check(e == 0, f"round_step {kind}/{tname} {topo.name} "
-                                  f"{flavor} inbox={emit_inbox}: err {e}")
+                    for emit_inbox in (False, True):
+                        kw = dict(kind=kind, per_origin=per_origin,
+                                  extracts=extracts, emit_inbox=emit_inbox)
+                        got = ks.round_step(*args, **kw)
+                        want = ks.plain(*views, **kw)
+                        want = tuple(None if w_ is None else
+                                     (w_.view(torch.bool)
+                                      if w_.dtype == torch.uint8 else w_)
+                                     for w_ in want)
+                        e = max_abs_err(got, want)
+                        errs["round_step"] = max(errs["round_step"], e)
+                        cases["round_step"] += 1
+                        check(e == 0, f"round_step {kind}/{tname} {topo.name} "
+                                      f"{flavor} u={u} offset={off} "
+                                      f"inbox={emit_inbox} plan "
+                                      f"{ks.last_launch}: err {e}")
         for emit_stored in (False, True):
             for emit_cov in (False, True):
                 p, m, u = 4, 15, 1001
@@ -265,17 +298,24 @@ def kernel_grid(check, dev, log):
                 cases["buffer_fold"] += 1
                 check(e == 0, f"buffer_fold {kind}/{tname} {shape}: err {e}")
         # digests and extractions: U off the block and 32-element multiples
-        # (1001, 333, 70) and one 16-byte aligned row width (1024)
-        for n, u in ((9, 1001), (15, 333), (40, 70), (15, 1024)):
-            x = rand_state(g, dtype, (n, u), dev)
+        # (1001, 333, 70), 16-byte aligned rows (1024, 4,096; 1,000 int32
+        # with a zero-padded last block) and an offset view of aligned rows
+        for n, w in ((9, 1001), (15, 333), (40, 70), (15, 1024),
+                     (15, 4096 if tname == "bool" else 1000), (9, -1024)):
+            u, off = abs(w), int(w < 0)
+            x = offset_view(rand_state(g, dtype, (n, u), dev), off)
             xv = x.view(torch.uint8) if x.dtype == torch.bool else x
-            for be in (8, 32, 64, 128):
+            # be 256 / 1,024: a block of more lanes than a warp has
+            for be in (8, 32, 64, 128, 256, 1024):
                 e = max_abs_err(kd.digest_blocks(x, block_elems=be, kind=kind),
                                 kd.plain(xv, be, kind))
                 errs["digest_blocks"] = max(errs["digest_blocks"], e)
                 cases["digest_blocks"] += 1
                 check(e == 0, f"digest_blocks {kind}/{tname} n={n} u={u} "
-                              f"be={be}: err {e}")
+                              f"offset={off} be={be} plan {kd.last_launch}: "
+                              f"err {e}")
+                if be > 128 or off:
+                    continue
                 nb = -(-u // be)
                 for p in (1, 4, 8):
                     for fill in ("zeros", "ones", "random"):
@@ -334,6 +374,16 @@ def kernel_timings(check, dev, log):
     out["round_step"] = (e, ms, plain_ms, *bound((2 * k + 3) * plane,
                                                  per_elem_ops * n * u))
     del delta, x, buf
+    pl, blocks = ks.last_launch
+    log["round_step_plan"] = dict(pl._asdict(), blocks=blocks)
+    print(f"plan round_step [1, {n}, {u}] int32 K={k}: tile {pl.tile} "
+          f"columns, {pl.stages} stages, {blocks} blocks, {pl.threads} "
+          f"threads, {pl.smem} B shared, "
+          f"{'bulk copies' if pl.bulk else 'synchronous loads'} of "
+          f"{pl.vec_bytes or 'one element'} B a lane, "
+          f"{'register' if pl.reg_tally else 'shared'} tallies", flush=True)
+    check(pl.bulk and pl.vec_bytes == 16,
+          f"round_step at the scale shapes took {pl}, not 16-byte bulk copies")
 
     # round_recv, bprr's fused receive: P gathered groups, the extractions out
     d = rand_state(g, torch.int32, (p, n, u), dev)
@@ -368,6 +418,15 @@ def kernel_timings(check, dev, log):
     plain_ms = time_ms(lambda: kd.plain(x, be, "max"))
     out["digest_blocks"] = (e, ms, plain_ms, *bound(plane + 12 * n * nb,
                                                     14 * n * u))
+    dp = kd.last_launch
+    log["digest_blocks_plan"] = dp._asdict()
+    print(f"plan digest_blocks [{n}, {u}] int32 be={be}: "
+          f"{'16-byte' if dp.vector else 'synchronous one-element'} loads "
+          f"({dp.vec} elements a lane), {dp.lanes_per_block} lanes a block, "
+          f"{dp.task_blocks} blocks a warp task, grid {dp.grid_x} x "
+          f"{dp.grid_y} blocks", flush=True)
+    check(dp.vector, f"digest_blocks at the scale shapes took {dp}, not "
+                     f"16-byte loads")
     masks = torch.randint(0, 2, (p, n, nb), generator=g, device=dev,
                           dtype=torch.int32).bool()
     mk = masks.to(torch.int32)
@@ -1318,6 +1377,7 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import _build
 
+    global INT_OPS_PER_S
     check = Checks()
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -1329,6 +1389,7 @@ def main() -> int:
           f"{torch.cuda.get_device_capability(0)}", flush=True)
     print(f"card: {smi}", flush=True)
     check(torch.cuda.get_device_capability(0) == (9, 0), "not an sm_90 card")
+    INT_OPS_PER_S = log["int_ops_per_s"] = int_ops_per_s(check)
 
     # 2. build
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 // Shared pieces of the port's CUDA kernels: the two join orders, the
 // per-element counts, the kind dispatch of the C entry points, the warp-
-// and block-reduced integer counters, and the 16-byte chunks and launch
-// shape of the elementwise kernels.
+// and block-reduced integer counters, a lane's vector of a row, and the
+// 16-byte chunks and launch shape of the elementwise kernels.
 #pragma once
 
 #include <cstdint>
@@ -58,6 +58,54 @@ template <class T>
 union Chunk {
   uint4 v;
   T e[16 / sizeof(T)];
+};
+
+// A lane's VB bytes of a row (VB = 16, 8, 4), or one element (VB = 0): one
+// load or store, and the elementwise join and count over its elements.
+template <int VB> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = uint32_t; };
+
+template <class T, int VB>
+struct Lane {
+  static constexpr int V = VB ? VB / (int)sizeof(T) : 1;
+  T e[V];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = T(0);
+  }
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (VB == 0) {
+      e[0] = *p;
+    } else {
+      union { typename Word<VB>::type w; T t[V]; } u;
+      u.w = *reinterpret_cast<const typename Word<VB>::type*>(p);
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[j] = u.t[j];
+    }
+  }
+  __device__ __forceinline__ void store(T* p) const {
+    if constexpr (VB == 0) {
+      *p = e[0];
+    } else {
+      union { typename Word<VB>::type w; T t[V]; } u;
+#pragma unroll
+      for (int j = 0; j < V; ++j) u.t[j] = e[j];
+      *reinterpret_cast<typename Word<VB>::type*>(p) = u.w;
+    }
+  }
+  template <class Op> __device__ __forceinline__ void join(const Lane& o) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = Op::join(e[j], o.e[j]);
+  }
+  template <class Op> __device__ __forceinline__ int count() const {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) c += Op::count(e[j]);
+    return c;
+  }
 };
 
 static inline bool aligned16(const void* p) {

@@ -7,16 +7,20 @@ leave-one-out fold), ack-gated clear, routing by the topology's
 ``nbrs``/``rev`` tables, the P-slot receive in slot order, and optionally
 the RR Δ-merge and the masked inbox.
 
-A CUDA block runs the round for 32 universe columns of one config, one
-thread per (column, node), with the columns' working set in shared memory:
-``(1 + K + S)·N`` values per column (x, the K buffer slots, the S sends —
-S = P for the per-origin fold, else 1). :func:`smem_bytes` sizes it; a
-round whose working set does not fit the card's 227 KB raises.
+A CUDA block runs the round for a tile of universe columns of one config
+with all its node rows; a thread is a (node, lane) pair holding its node's
+δ and x in registers, and only the sends go to shared memory. Aligned rows
+come in through a ring of Hopper bulk asynchronous copies; :func:`plan`
+picks the tile width, the stages and the tallies that fit the card's
+227 KB of shared memory, the direct (synchronous) loads where rows are not
+16-byte aligned, and raises where nothing fits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,13 +28,37 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.buffer_fold import plain as fold_plain
 
 launches = 0            # kernel launches since the last reset (CUDA only)
+last_launch = None      # (Plan, blocks per config) of the last launch
 SMEM_LIMIT = 232448     # dynamic shared memory a block may use on sm_90
-COLS = 32               # universe columns per block (csrc/round_step.cu)
+REG_TALLY_P = 4         # largest P with registers per slot (csrc/round_step.cu)
+REG_TALLY_N = 16        # largest N with register tallies (a 512-thread block)
+VEC_BYTES = (16, 8, 4)  # int32 lanes' bytes, widest first (uint8: 4)
+STAGES = (3, 2)         # bulk plans' ring stages, most first
 
 _SIGNATURE = {"round_step_launch": [
     ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_void_p]}
+    ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]}
+
+
+class Plan(NamedTuple):
+    """A launch of ``csrc/round_step.cu``: ``tile`` universe columns a
+    block step, ``vec_bytes`` a lane moves per row (0: direct loads, one
+    element), ``stages`` of the bulk-copy ring (0: direct), ``threads`` a
+    block, ``reg_tally`` the P bound of register tallies (0: shared
+    counters), and the shared memory: int tables, mbarriers, total."""
+    tile: int
+    vec_bytes: int
+    stages: int
+    threads: int
+    reg_tally: int
+    table_bytes: int
+    bar_bytes: int
+    smem: int
+
+    @property
+    def bulk(self) -> bool:
+        return self.stages > 0
 
 
 def table_bytes(n: int, p: int) -> int:
@@ -39,28 +67,46 @@ def table_bytes(n: int, p: int) -> int:
     return -(-4 * (6 * n * p + 3 * n) // 16) * 16
 
 
-def smem_bytes(n: int, p: int, k: int, per_origin: bool,
-               elem_size: int) -> int:
-    """Shared memory of one block: the int tables, then (1 + K + S)·N rows
-    of COLS values."""
-    rows = n * (1 + k + (p if per_origin else 1))
-    return table_bytes(n, p) + elem_size * COLS * rows
+@functools.lru_cache(maxsize=256)
+def plan(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
+         aligned: bool) -> Plan:
+    """The launch plan of one round: N nodes, P slots, K buffer slots,
+    ``elem_size``-byte elements, U columns; ``aligned`` when every operand's
+    base address is 16-byte aligned.
 
+    Rows of U·elem_size bytes, a multiple of 16, on aligned bases take the
+    bulk-copy ring: the widest lane vector (int32: 16, 8, 4 bytes; uint8:
+    4, one element a register as for int32) and the most
+    stages (3, 2) whose shared memory — the tables, the mbarriers, two
+    buffers of the S send rows (S = P for the per-origin fold, else 1) and
+    the stages of the (2 + K)·N input rows — fits 227 KB; failing that,
+    direct vector loads of the widest lane vector whose sends fit. Other
+    rows take direct loads of one element a lane over 32-column tiles.
+    Raises where even that does not fit."""
+    s = p if per_origin and k else 1
+    rows_in = (2 + k) * n
+    tables = table_bytes(n, p)
+    reg = REG_TALLY_P if n <= REG_TALLY_N and p <= REG_TALLY_P else 0
+    threads = 32 * (n if reg else min(n, 32))
 
-def block_rows(n: int, p: int, k: int, per_origin: bool,
-               elem_size: int) -> int:
-    """Node-threads per column of a block (min(N, 32): a block is at most
-    1,024 threads; a thread loops over nodes N/32 apart beyond that).
-    Raises when the block's working set does not fit in shared memory,
-    i.e. when ``(1 + K + S)·N`` exceeds about (227 KB - tables) /
-    (32 · element size) — 1,800 values for int32 states, 7,200 for bool."""
-    need = smem_bytes(n, p, k, per_origin, elem_size)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"round_step: {n} nodes x (1 + {k} slots + sends) of "
-            f"{elem_size}-byte values need {need} bytes of shared memory "
-            f"per block; a block has {SMEM_LIMIT}")
-    return min(n, 32)
+    def make(vb, stages):
+        row = 32 * (vb or elem_size)                  # bytes of a tile row
+        bars = -(-8 * stages // 16) * 16
+        smem = tables + bars + (2 * s * n + stages * rows_in) * row
+        return Plan(row // elem_size, vb, stages, threads, reg, tables, bars,
+                    smem)
+
+    vecs = VEC_BYTES if elem_size == 4 else (4,)
+    cands = [make(vb, st) for vb in vecs for st in STAGES] \
+        + [make(vb, 0) for vb in vecs] \
+        if aligned and (u * elem_size) % 16 == 0 else []
+    for pl in cands + [make(0, 0)]:
+        if pl.smem <= SMEM_LIMIT:
+            return pl
+    raise ValueError(
+        f"round_step: {n} nodes x {s} send rows of 32 {elem_size}-byte "
+        f"values need {make(0, 0).smem} bytes of shared memory per block; a "
+        f"block has {SMEM_LIMIT}")
 
 
 def plain(delta, x, buf, active, delivered, nbrs, rev, kind: str = "max",
@@ -106,8 +152,8 @@ def plain(delta, x, buf, active, delivered, nbrs, rev, kind: str = "max",
 
 
 def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
-            extracts, emit_inbox):
-    global launches
+            extracts, emit_inbox, pl=None):
+    global launches, last_launch
     B.check_cuda("round_step", delta, x, buf, active, delivered, nbrs, rev)
     nb, n, u = x.shape
     p = nbrs.shape[-1]
@@ -122,18 +168,21 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
     nodecnt = torch.zeros((nb, n, 2), dtype=torch.int32, device=dev)
     ssend, cnt, dsz = (torch.zeros((nb, n, p), dtype=torch.int32, device=dev)
                        for _ in range(3))
-    rows = block_rows(n, p, k, per_origin, x.element_size())
+    pl = pl or plan(n, p, k, per_origin, x.element_size(), u, all(
+        t is None or t.data_ptr() % 16 == 0
+        for t in (delta, x, buf, xo, bo, inbox)))
+    blocks = ctypes.c_longlong(0)
     lib = B.library("round_step", _SIGNATURE)
     err = lib.round_step_launch(
         B.KIND_CODES[(kind, x.dtype)], B.ptr(delta), B.ptr(x), B.ptr(buf),
         B.ptr(active), B.ptr(delivered), B.ptr(nbrs), B.ptr(rev), B.ptr(xo),
         B.ptr(bo), B.ptr(inbox), B.ptr(nodecnt), B.ptr(ssend), B.ptr(cnt),
-        B.ptr(dsz), nb, n, p, k, int(per_origin), int(extracts), u, rows,
-        table_bytes(n, p),
-        smem_bytes(n, p, k, per_origin, x.element_size()),
-        B.stream_handle())
+        B.ptr(dsz), nb, n, p, k, int(per_origin), int(extracts), u,
+        pl.vec_bytes, pl.reg_tally, pl.stages, pl.threads, pl.table_bytes,
+        pl.bar_bytes, pl.smem, ctypes.byref(blocks), B.stream_handle())
     B.check_launch(lib, err, "round_step")
     launches += 1
+    last_launch = (pl, blocks.value)
     return xo, bo, inbox, nodecnt[..., 0], nodecnt[..., 1], ssend, cnt, dsz
 
 

@@ -64,16 +64,42 @@ def assert_equal(got, want, name):
         assert torch.equal(got.cpu(), want), name
 
 
+def offset_view(t, offset):
+    """``t`` as a view ``offset`` elements into a larger buffer (offset 1:
+    not 16-byte aligned)."""
+    if not offset:
+        return t
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
+
+
+# U of the round_step / digest cases: rows not 16-byte aligned (1001, direct
+# loads), whole bulk-copy tiles (1024), aligned rows with a ragged last tile
+# (1000 int32; bool rows of 1000 bytes are not aligned, so 4,096 there), and
+# an aligned width in a view off 16 bytes
+WIDTHS = ["u1001", "u1024", "ragged", "offset"]
+
+
+def width(name, kind_name):
+    """(U, offset) of a WIDTHS case."""
+    return {"u1001": (1001, 0), "u1024": (1024, 0), "offset": (1024, 1),
+            "ragged": (4096 if kind_name == "max_bool" else 1000, 0)}[name]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind_name", sorted(KINDS))
 @pytest.mark.parametrize("flavor", sorted(FLAVORS))
 @pytest.mark.parametrize("topo_name", ["mesh9d4", "tree15", "mesh40d4"])
-def test_round_step_kernel_vs_plain(sm90, kind_name, flavor, topo_name, rng):
-    """N = 40 takes more nodes than a block has node-threads (32)."""
+@pytest.mark.parametrize("w", WIDTHS)
+def test_round_step_kernel_vs_plain(sm90, kind_name, flavor, topo_name, w,
+                                    rng):
+    """B = 2 configs; N = 40 takes more nodes than a block has node-warps
+    (32); the widths take the direct, bulk-copy and ragged paths."""
     topo = {"mesh9d4": lambda: topology.partial_mesh(9, 4),
             "tree15": lambda: topology.tree(15),
             "mesh40d4": lambda: topology.partial_mesh(40, 4)}[topo_name]()
-    n, p, b, u = topo.num_nodes, topo.max_degree, 2, 1001
+    (u, off), n, p, b = width(w, kind_name), topo.num_nodes, topo.max_degree, 2
     k, per_origin, extracts = FLAVORS[flavor]
     k = p + 1 if k == "P+1" else k
     arrays = [rand_state(rng, kind_name, b, n, u),
@@ -84,6 +110,7 @@ def test_round_step_kernel_vs_plain(sm90, kind_name, flavor, topo_name, rng):
               rng.integers(0, 2, size=(b, n)).astype(np.int32) if k else None]
     cpu = [None if a is None else both(a, sm90)[0] for a in arrays]
     dev = [None if a is None else both(a, sm90)[1] for a in arrays]
+    dev[0] = offset_view(dev[0], off)
     kind = KINDS[kind_name][0]
     for emit_inbox in (False, True):
         kw = dict(kind=kind, per_origin=per_origin, extracts=extracts,
@@ -173,13 +200,19 @@ def test_wrappers_refuse_non_contiguous_input(sm90):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind_name", sorted(KINDS))
-@pytest.mark.parametrize("be", [8, 32, 64, 128])
+@pytest.mark.parametrize("be", [8, 32, 64, 128, 256, 1024])
 def test_digest_blocks_kernel_vs_plain(sm90, kind_name, be, rng):
     """U off the block and 32-element multiples: the zero-padded last block
-    enters the hash; BitGSet words with bit 31 set order as unsigned."""
+    enters the hash; BitGSet words with bit 31 set order as unsigned; 16-byte
+    aligned rows (1024, 4,096, and 1,000 int32 with a padded last block)
+    take the vector loads, a view off 16 bytes the one-element ones; be 256
+    and 1,024 give blocks of more lanes than a warp."""
     kind = KINDS[kind_name][0]
-    for n, u in ((9, 1001), (15, 333), (40, 70)):
+    for n, u, off in ((9, 1001, 0), (15, 333, 0), (40, 70, 0),
+                      (15, 1024, 0), (15, 4096, 0), (15, 1000, 0),
+                      (9, 1024, 1)):
         x = both(rand_state(rng, kind_name, n, u), sm90)
+        x = (x[0], offset_view(x[1], off))
         n0 = kdig.launches
         got = ops.digest_blocks(x[1], block_elems=be, kind=kind)
         torch.cuda.synchronize()

@@ -223,14 +223,113 @@ def test_sync_wrappers_refuse_with_the_dtype_named(dtype):
 
 
 def test_round_step_shared_memory_budget():
-    """The paper's mesh takes a block of 32 columns x 15 node-threads in
-    21 KB; beyond 32 nodes a block keeps 32 node-threads; a working set too
-    large for one block raises instead of launching."""
-    assert kstep.block_rows(15, 4, 5, True, 4) == 15
-    assert kstep.smem_bytes(15, 4, 5, True, 4) < 22 * 1024
-    assert kstep.block_rows(40, 8, 9, True, 4) == 32
+    """The paper's mesh (N = 15, P = 4, K = 5, int32) takes the bulk-copy
+    ring of 128-column tiles, three stages and register tallies in 480
+    threads within 227 KB; beyond 16 nodes a block keeps shared counters
+    and at most 32 node-warps; a working set too large for every plan
+    raises instead of launching."""
+    pl = kstep.plan(15, 4, 5, True, 4, 4_194_304, True)
+    assert (pl.bulk, pl.tile, pl.vec_bytes, pl.stages, pl.threads,
+            pl.reg_tally) == (True, 128, 16, 3, 480, kstep.REG_TALLY_P)
+    assert pl.smem == pl.table_bytes + pl.bar_bytes + (2 * 4 + 3 * 7) * 15 \
+        * 512 <= kstep.SMEM_LIMIT
+    pl = kstep.plan(40, 8, 9, True, 4, 1024, True)
+    assert pl.threads == 1024 and pl.reg_tally == 0
+    assert pl.smem <= kstep.SMEM_LIMIT
     with pytest.raises(ValueError):
-        kstep.block_rows(400, 8, 9, True, 4)
+        kstep.plan(400, 8, 9, True, 4, 1024, True)
+
+
+def first_design_accepts(n, p, k, per_origin, elem_size):
+    """The shapes the first round_step design took (its block_rows): a
+    block of 32 columns held x, the K slots and the S sends of every node
+    in shared memory."""
+    s = p if per_origin else 1
+    return kstep.table_bytes(n, p) + elem_size * 32 * n * (1 + k + s) \
+        <= kstep.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("elem_size", [1, 4])
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+def test_round_step_plans_cover_every_first_design_shape(flavor, elem_size):
+    """Every (N, P, K, element size) that the first design took gets a
+    launchable plan within 227 KB, aligned or not: a block of whole warps
+    (at most 1,024 threads), ring stages 0 (direct loads) or 2-3 (bulk
+    copies of 16-byte multiples), register tallies only for N <= 16 and
+    P <= REG_TALLY_P."""
+    k0, per_origin, _ = FLAVORS[flavor]
+    taken = 0
+    for n in (1, 2, 9, 15, 16, 17, 32, 33, 40, 64, 100, 200, 450, 900):
+        for p in (1, 2, 3, 4, 8, 9, 16, 32, 64):
+            k = p + 1 if k0 == "P+1" else k0
+            if not first_design_accepts(n, p, k, per_origin, elem_size):
+                continue
+            taken += 1
+            for u, aligned in ((1001, True), (1024, True), (1024, False),
+                               (4_194_304, True)):
+                pl = kstep.plan(n, p, k, per_origin, elem_size, u, aligned)
+                assert pl.smem <= kstep.SMEM_LIMIT
+                assert pl.threads % 32 == 0 and 32 <= pl.threads <= 1024
+                assert pl.threads == 32 * (n if pl.reg_tally else min(n, 32))
+                assert pl.stages in (0, 2, 3)
+                assert pl.bulk <= (aligned and (u * elem_size) % 16 == 0)
+                assert pl.tile * elem_size == 32 * (pl.vec_bytes or elem_size)
+                assert (pl.reg_tally == kstep.REG_TALLY_P) == (
+                    n <= kstep.REG_TALLY_N and p <= kstep.REG_TALLY_P)
+    assert taken > 50
+
+
+@pytest.mark.parametrize("n,p,k,per_origin,elem_size", [
+    (15, 4, 5, True, 4),      # GMap / BitGSet bprr on mesh15d4
+    (15, 4, 1, False, 4),     # classic
+    (15, 4, 0, False, 4),     # state
+    (15, 3, 4, True, 4),      # bprr on tree15
+    (15, 4, 5, True, 1),      # bool states
+])
+def test_round_step_scale_shapes_take_the_bulk_path(n, p, k, per_origin,
+                                                    elem_size):
+    pl = kstep.plan(n, p, k, per_origin, elem_size, 4_194_304, True)
+    assert pl.bulk and pl.stages >= 2 and pl.reg_tally
+    # int32: 16 bytes a lane; uint8: 4 (one element a register)
+    assert pl.vec_bytes == 4 * elem_size and pl.tile == 128
+
+
+@pytest.mark.parametrize("elem_size", [1, 4])
+@pytest.mark.parametrize("u,aligned", [(1001, True), (1500, True),
+                                       (1024, False)])
+def test_round_step_unaligned_rows_load_directly(u, aligned, elem_size):
+    """Rows not a multiple of 16 bytes (U = 1001; the paper's bool GSet,
+    U = 1,500) or a base off 16 bytes load one element a lane."""
+    if u == 1500 and elem_size == 4:
+        aligned = False
+    pl = kstep.plan(15, 4, 5, True, elem_size, u, aligned)
+    assert not pl.bulk and pl.vec_bytes == 0 and pl.tile == 32
+
+
+@pytest.mark.parametrize("m,u,be,elem_size,aligned,vec", [
+    (15, 4_194_304, 64, 4, True, 4),      # the scale join's digest
+    (15, 2 ** 27 // 32, 64, 4, True, 4),  # BitGSet words
+    (15, 1024, 8, 1, True, 1),            # be below a uint8 vector
+    (15, 4096, 32, 1, True, 16),
+    (9, 1001, 64, 4, True, 1),            # rows off 16 bytes
+    (9, 1024, 64, 4, False, 1),           # an offset view
+    (40, 70, 128, 1, True, 1),
+    (15, 1000, 1024, 4, True, 4),         # one zero-padded block of 256 lanes
+])
+def test_digest_blocks_plan(m, u, be, elem_size, aligned, vec):
+    """16-byte loads where the base, the row width and the block allow it;
+    every block of every row lies in one warp task of the grid."""
+    from repro_torch.kernels import digest_blocks as kdig
+
+    pl = kdig.plan(m, u, be, elem_size, aligned)
+    assert pl.vec == vec and pl.vector == (vec > 1)
+    assert pl.lanes_per_block * vec == be
+    assert pl.task_vectors == max(32 * kdig.UNROLL, pl.lanes_per_block)
+    assert pl.task_blocks * pl.lanes_per_block == pl.task_vectors
+    nb = -(-u // be)
+    assert pl.grid_x * kdig.WARPS * pl.task_blocks >= nb
+    assert (pl.grid_x - 1) * kdig.WARPS * pl.task_blocks < nb
+    assert pl.grid_y == min(m, 65535)
 
 
 @pytest.fixture
