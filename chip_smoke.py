@@ -26,8 +26,13 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    bool and bitor, delta_extract likewise, lex_join_delta) at small shapes
    off multiples of 4 and 16 and at views not 16-byte aligned, then at
    [15, 4,194,304] int32 beside their plain versions, the single library
-   call where one exists (torch.maximum, torch.bitwise_or) and their byte
-   bounds;
+   call where one exists (torch.maximum, torch.bitwise_or; join's ratio to
+   torch.maximum printed) and their byte bounds; the batch shapes against
+   the plain versions (``round_recv`` over 70,001 rows of short and long
+   rows, ``round_step`` over 65,537 configs at U = 32 and at U = 64 on
+   mesh16 and mesh50, the five path kernels on [B, N, U] rows) and
+   ``round_step`` / ``round_recv`` timed at the store's shapes (30,000 ×
+   mesh50 × 64 slots, 1,048,576 × mesh16 × 32) beside their bounds;
 4. paper size, each run on all three engines (bit-identical, each kernel
    engine's launches equal to its rounds):
    - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
@@ -47,7 +52,20 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
      GSet(1,024) r25 join of phase 4; digest_driven on all three engines),
      (b) a BitGSet join at 2^27 bits (digest_driven), (c) GMap bprr under
      10% loss (fused and mega against the reference engine);
-6. the lex-pair main path: LWWMap with 4,194,304 keys (the GMap 10% key
+6. the batched main path (sweeps and the keyed store), launch counters
+   zeroed again: BENCH_fault's scenarios and fig_digest's join and heal
+   grids as one ``simulate_sweep`` per algorithm on all three engines
+   (every cell equal to the committed value and to its phase-4 single
+   run); ``fig11_retwis.json`` value for value (every zipf row on the
+   reference engine, ``fused``/``mega`` bit-identical to it, the resync
+   block); Retwis at 50 nodes × 30,000 objects × 64 slots, 100 + 13
+   rounds, classic and bprr on three engines (ms per round, peak memory,
+   the byte bound; engines equal, 8 sampled objects equal to their own
+   ``simulate``, every object converged; a profile of 3 rounds); 1,048,576
+   objects in chunks of 5 rounds with ``object_metrics=False`` on ``mega``
+   and ``fused``, checkpointed at every boundary and resumed from round
+   10, against an ``object_metrics=True`` run and 8 per-object runs;
+7. the lex-pair main path: LWWMap with 4,194,304 keys (the GMap 10% key
    blocks written as (timestamp + 1, node id + 1)), bprr and classic on the
    mesh, 12 + 8 rounds on the reference engine (ms per round, peak memory;
    27,962 × the GCounter(15) run; ``engine="mega"`` resolves to the
@@ -56,14 +74,14 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    at 65,536 keys under 10% loss and in a digest_driven join, each run on
    the card equal to the CPU run; ``repro_torch.quickstart`` on the card
    equal to the CPU;
-7. profile: ``torch.profiler`` over three GMap rounds per kernel engine
+8. profile: ``torch.profiler`` over three GMap rounds per kernel engine
    (bprr), three LWWMap rounds (reference) and three digest_driven rounds
    on ``fused`` — device time by kernel and the device's busy share; a
    profiler failure fails the run.
 
-Phases 4–5 are the sync engines' main path and phase 6 the lex-pair one
-(the elementwise kernels' users): the launch counters are zeroed before
-and read after each. Prints
+Phases 4–5 are the sync engines' main path, phase 6 its batched form and
+phase 7 the lex-pair one (the elementwise kernels' users): the launch
+counters are zeroed before and read after each. Prints
 per-phase seconds, one ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``; exits non-zero, without that line, if anything fails or no card
@@ -72,7 +90,9 @@ is present. Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -82,6 +102,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
+# The million-object fused store peaks at 62 GiB of the card's 80 and
+# allocates 10 GiB buffers; repeated runs fragment fixed-size segments
+# until one no longer fits. Expandable segments map pages as needed.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT32_LANES_PER_SM = 64          # Hopper: 16 INT32 lanes per SM sub-partition
@@ -461,6 +485,171 @@ def kernel_timings(check, dev, log):
     return out
 
 
+def batch_kernel_grid(check, dev, log):
+    """The store's and the sweep's shapes against the plain versions on the
+    card: ``round_recv`` over more than 65,535 rows (short rows of 32 / 64
+    int32, 32 bools, 3 words; a long row of 200 int32), ``round_step`` over
+    more than 65,535 configs (mesh16, U = 32) and at U = 64 (mesh16; mesh50,
+    whose plan falls back to direct loads), ``round_recv`` with its grid
+    capped at 3 blocks (every grid-stride loop walks), and the five path
+    kernels on a batch's [B, N, U] operands as rows. Returns the largest
+    error per kernel."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import round_recv as kr
+    from repro_torch.kernels import round_step as ks
+    from repro_torch.sync import topology
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    errs = {k: 0.0 for k in SYNC_KERNELS}
+    t0 = time.perf_counter()
+    for dtype, u in ((torch.int32, 32), (torch.int32, 64), (torch.bool, 32),
+                     ("words", 3), (torch.int32, 200)):
+        kind = "bitor" if dtype == "words" else "max"
+        p, m = 4, 70_001
+        d = rand_state(g, dtype, (p, m, u), dev)
+        x = rand_state(g, dtype, (m, u), dev)
+        act = torch.randint(0, 2, (m, p), generator=g, device=dev,
+                            dtype=torch.int32)
+        got = ops.round_recv(d, x, kind=kind, active=act, emit_stored=True,
+                             emit_cov=True)
+        want = ops.round_recv(d.cpu(), x.cpu(), kind=kind, active=act.cpu(),
+                              emit_stored=True, emit_cov=True)
+        e = max_abs_err(tuple(t.cpu() for t in got), want)
+        errs["round_recv"] = max(errs["round_recv"], e)
+        check(e == 0, f"round_recv [{p}, {m}, {u}] {dtype}: err {e}")
+    cap = kr.MAX_BLOCKS
+    try:
+        kr.MAX_BLOCKS = 3
+        for u in (32, 200):                    # a short row, a long row
+            p, m = 4, 1_001
+            d = rand_state(g, torch.int32, (p, m, u), dev)
+            x = rand_state(g, torch.int32, (m, u), dev)
+            act = torch.randint(0, 2, (m, p), generator=g, device=dev,
+                                dtype=torch.int32)
+            got = ops.round_recv(d, x, active=act, emit_stored=True,
+                                 emit_cov=True)
+            want = ops.round_recv(d.cpu(), x.cpu(), active=act.cpu(),
+                                  emit_stored=True, emit_cov=True)
+            e = max_abs_err(tuple(t.cpu() for t in got), want)
+            errs["round_recv"] = max(errs["round_recv"], e)
+            check(e == 0, f"round_recv [{p}, {m}, {u}] over 3 blocks: "
+                          f"err {e}")
+    finally:
+        kr.MAX_BLOCKS = cap
+    del d, x, act, got, want
+    for n, u, nb, algo in ((16, 32, 65_537, "bprr"), (16, 32, 65_537,
+                                                      "classic"),
+                           (16, 64, 3_001, "bprr"), (50, 64, 1_000, "bprr")):
+        topo = topology.partial_mesh(n, 4).on(dev)
+        p = topo.max_degree
+        k = p + 1 if algo == "bprr" else 1
+        args = (rand_state(g, torch.int32, (nb, n, u), dev),
+                rand_state(g, torch.int32, (nb, n, u), dev),
+                rand_state(g, torch.int32, (k, nb, n, u), dev),
+                (torch.randint(0, 2, (nb, n, p), generator=g, device=dev,
+                               dtype=torch.int32) * topo.mask).to(torch.int32),
+                torch.randint(0, 2, (nb, n), generator=g, device=dev,
+                              dtype=torch.int32), topo.nbrs, topo.rev)
+        kw = dict(kind="max", per_origin=algo == "bprr",
+                  extracts=algo == "bprr", emit_inbox=algo != "bprr")
+        before = ks.launches
+        got = ops.round_step(*args, **kw)
+        chunks = ks.launches - before
+        e = max_abs_err(got, ks.plain(*args, **kw))
+        errs["round_step"] = max(errs["round_step"], e)
+        pl, blocks = ks.last_launch
+        check(e == 0 and chunks == -(-nb // ks.MAX_CONFIGS),
+              f"round_step [{nb}, {n}, {u}] {algo}: err {e}, {chunks} "
+              f"launches")
+        print(f"round_step [{nb}, {n}, {u}] {algo}: {chunks} launch(es), "
+              f"{'bulk copies' if pl.bulk else 'direct loads'} of "
+              f"{pl.vec_bytes or 'one element'} B a lane, {blocks} block(s) "
+              f"a config", flush=True)
+        del args, got
+    b, n, u, p, be = 4096, 16, 64, 4, 8
+    x = rand_state(g, torch.int32, (b, n, u), dev)
+    buf = rand_state(g, torch.int32, (p + 1, b, n, u), dev)
+    masks = torch.randint(0, 2, (p, b, n, u // be), generator=g, device=dev,
+                          dtype=torch.int32).bool()
+    for name, got, want in (
+            ("buffer_fold", ops.buffer_fold(buf, kind="max"),
+             ops.buffer_fold(buf.cpu(), kind="max")),
+            ("digest_blocks", ops.digest_blocks(x, block_elems=be),
+             ops.digest_blocks(x.cpu(), block_elems=be)),
+            ("masked_extract", ops.masked_extract(x, masks, block_elems=be),
+             ops.masked_extract(x.cpu(), masks.cpu(), block_elems=be))):
+        e = max_abs_err(got.cpu(), want)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} rows [{b}, {n}, {u}]: err {e}")
+    del x, buf, masks
+    torch.cuda.empty_cache()
+    print(f"batch kernel grid: {errs} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    log["batch_kernel_grid"] = errs
+    return errs
+
+
+def store_kernel_timings(check, dev, log):
+    """``round_step`` and ``round_recv`` at the store's shapes, beside their
+    byte bounds: the paper setting (30,000 objects of mesh50 d4, 64 int32
+    slots, bprr) and a million objects (mesh16 d4, 32 slots, bprr), each
+    as the ``mega`` round's one launch and the ``fused`` round's receive
+    (P = 4 extractions out). Returns ``{kernel: [row, ...]}``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import round_recv as kr
+    from repro_torch.kernels import round_step as ks
+    from repro_torch.sync import topology
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {"round_step": [], "round_recv": []}
+    for tag, b, n, u in (("paper 30,000 x mesh50 x 64", 30_000, 50, 64),
+                         ("1,048,576 x mesh16 x 32", 1 << 20, 16, 32)):
+        topo = topology.partial_mesh(n, 4).on(dev)
+        p, k = topo.max_degree, topo.max_degree + 1
+        plane = b * n * u * 4
+        args = (rand_state(g, torch.int32, (b, n, u), dev),
+                rand_state(g, torch.int32, (b, n, u), dev),
+                rand_state(g, torch.int32, (k, b, n, u), dev),
+                topo.mask.to(torch.int32).expand(b, n, p).contiguous(),
+                torch.ones((b, n), dtype=torch.int32, device=dev),
+                topo.nbrs, topo.rev)
+        kw = dict(kind="max", per_origin=True, extracts=True,
+                  emit_inbox=False)
+        ms = time_ms(lambda: ops.round_step(*args, **kw), reps=5)
+        pl, blocks = ks.last_launch
+        b_ms, b_by = bound((2 * k + 3) * plane,
+                           (2 + 3 * k + 6 * p + 1) * b * n * u)
+        out["round_step"].append({"shape": f"[{b}, {n}, {u}] int32 K={k}",
+                                  "ms": ms, "bound_ms": b_ms,
+                                  "bound_by": b_by,
+                                  "launches_per_call": -(-b // 65535),
+                                  "plan": dict(pl._asdict(), blocks=blocks)})
+        del args
+        torch.cuda.empty_cache()
+        d = rand_state(g, torch.int32, (p, b * n, u), dev)
+        x = rand_state(g, torch.int32, (b * n, u), dev)
+        act = topo.mask.to(torch.int32).repeat(b, 1)
+        rkw = dict(kind="max", active=act, emit_stored=True)
+        ms_r = time_ms(lambda: ops.round_recv(d, x, **rkw), reps=5)
+        rb_ms, rb_by = bound((2 * p + 2) * plane, 5 * p * b * n * u)
+        out["round_recv"].append({"shape": f"[{p}, {b * n}, {u}] int32",
+                                  "ms": ms_r, "bound_ms": rb_ms,
+                                  "bound_by": rb_by, "launches_per_call": 1,
+                                  "short_rows": kr.short_rows(u, 4, True)})
+        del d, x, act
+        torch.cuda.empty_cache()
+        print(f"store shapes {tag}: round_step {ms:.3f} ms (bound "
+              f"{b_ms:.3f}, {-(-b // 65535)} launch(es), "
+              f"{'bulk' if pl.bulk else 'direct'} {pl.vec_bytes} B lanes); "
+              f"round_recv {ms_r:.3f} ms (bound {rb_ms:.3f})", flush=True)
+    log["store_kernel_timings"] = out
+    return out
+
+
 def elementwise_state(g, tname, shape, dev):
     """States of the elementwise kernels: 0/1 flags, small uint8 / int32,
     signed int8 over its whole range, full 32-bit words."""
@@ -571,6 +760,9 @@ def elementwise_timings(check, dev, log):
     lib_ms = time_ms(lambda: torch.maximum(a, b))
     extra["join_bitor_library_ms"] = time_ms(lambda: torch.bitwise_or(wa, wb))
     out["join"] = (e, ms, plain_ms, *bound(3 * plane, n), lib_ms)
+    extra["join_over_torch_maximum"] = ms / lib_ms
+    print(f"join {ms:.4f} ms beside torch.maximum {lib_ms:.4f} ms: ratio "
+          f"{ms / lib_ms:.4f}", flush=True)
 
     e = max(max_abs_err(kd.delta_extract(a, b), kd.plain(a, b)),
             max_abs_err(kd.delta_extract(wa, wb, kind="bitor"),
@@ -631,8 +823,9 @@ def same_run(a, b) -> bool:
         or np.array_equal(a.uniform, b.uniform))
 
 
-def expected_launches(engine, algo, rounds):
-    """Launches of one run: ``mega`` one ``round_step`` per δ-family round;
+def expected_launches(engine, algo, rounds, configs=1):
+    """Launches of one run: ``mega`` one ``round_step`` per δ-family round
+    (one per 65,535 configs of a batch: the kernel's chunks);
     ``fused`` one ``round_recv`` (+ ``buffer_fold`` for bp/bprr); the resync
     modes one ``round_recv`` per round on either kernel engine, and
     ``digest_driven`` one ``digest_blocks`` + one ``masked_extract``;
@@ -640,7 +833,9 @@ def expected_launches(engine, algo, rounds):
     kern = engine in ("fused", "mega")
     resync = algo in ("state_driven", "digest_driven")
     digest = kern and algo == "digest_driven"
-    return {"round_step": rounds if engine == "mega" and not resync else 0,
+    chunks = -(-configs // 65535)
+    return {"round_step": rounds * chunks if engine == "mega" and not resync
+            else 0,
             "round_recv": rounds if kern and (resync or engine == "fused")
             else 0,
             "buffer_fold": rounds if engine == "fused"
@@ -659,27 +854,41 @@ class Launches:
         self.check = check
         self.total = {name: 0 for name in SOURCES}
 
-    def run(self, tag, engine, algo, rounds, fn):
+    def run(self, tag, engine, algo, rounds, fn, configs=1):
         from repro_torch import kernels
 
         before = kernels.launch_counts()
         r = fn()
         after = kernels.launch_counts()
         used = {k: after[k] - before[k] for k in after}
-        want = expected_launches(engine, algo, rounds)
+        want = expected_launches(engine, algo, rounds, configs)
         self.check(used == want, f"{tag}: launches {used}, expected {want}")
         for k, v in want.items():
             self.total[k] += v
         return r
 
 
-def all_engines(check, launches, tag, algo, rounds, fn):
+def all_engines(check, launches, tag, algo, rounds, fn, times=None):
     """``fn(engine)`` on the three engines; launch-checked, and the kernel
-    engines bit-identical to the reference. Returns the reference run."""
+    engines bit-identical to the reference. Returns the reference run.
+    ``times``, a dict, receives each engine's ``(ms per round, peak
+    bytes)`` of its one run (host clock around a synchronised device)."""
+    import torch
+
     from repro_torch.sync import ENGINES
 
-    runs = {e: launches.run(f"{tag} {e}", e, algo, rounds,
-                            lambda e=e: fn(e)) for e in ENGINES}
+    runs = {}
+    for e in ENGINES:
+        if times is not None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[e] = launches.run(f"{tag} {e}", e, algo, rounds,
+                               lambda e=e: fn(e))
+        if times is not None:
+            torch.cuda.synchronize()
+            times[e] = ((time.perf_counter() - t0) * 1e3 / rounds,
+                        torch.cuda.max_memory_allocated())
     for e in ("fused", "mega"):
         check(same_run(runs["reference"], runs[e]),
               f"{tag}: {e} differs from reference")
@@ -762,8 +971,9 @@ def join_x0(nodes, universe, ratio, tile=None, value=1, dtype=None):
     return x0
 
 
-def digest_phase(check, launches, log):
-    """fig_digest.json's join and heal tables on all three engines."""
+def digest_phase(check, launches, log, singles):
+    """fig_digest.json's join and heal tables on all three engines; the
+    reference runs go into ``singles`` for the sweep phase."""
     import numpy as np
 
     from repro_torch.core import GSet
@@ -793,6 +1003,7 @@ def digest_phase(check, launches, log):
                                f"conv_round, tx_to_conv) {got} vs {want}")
             if key == "r25":
                 join_r25[algo] = r
+            singles["join", algo, key] = r
             runs += 3
     events = fig["events"]
     groups = (np.arange(n) >= n // 2).astype(np.int32)
@@ -814,6 +1025,7 @@ def digest_phase(check, launches, log):
                     row["converged"])
             check(got == want, f"heal {algo} {key}: (tx_total, tx_post_heal, "
                                f"ttc_rounds, converged) {got} vs {want}")
+            singles["heal", algo, key] = r
             runs += 3
     wall = time.perf_counter() - t0
     print(f"fig_digest: {runs} runs (join + heal) reproduced, engines "
@@ -822,22 +1034,17 @@ def digest_phase(check, launches, log):
     return join_r25
 
 
-def fault_phase(check, launches, log):
-    """BENCH_fault.json: the δ-family under loss, a partition and churn."""
+def fault_scenarios(topo, events, quiet):
+    """BENCH_fault.json's schedules, as ``benchmarks/fig_fault.py`` builds
+    them."""
     import numpy as np
 
-    from repro_torch.core import GSet
-    from repro_torch.sync import FaultSchedule, simulate, topology
-    from repro_torch.sync import workloads as W
+    from repro_torch.sync import FaultSchedule
 
-    bench = json.loads((REPO / "benchmarks" / "results" /
-                        "BENCH_fault.json").read_text())
-    events, quiet = bench["events"], bench["quiet"]
-    topo = topology.partial_mesh(bench["nodes"], 4)
     n = topo.num_nodes
     lossy = events + quiet // 4
     groups = (np.arange(n) >= n // 2).astype(np.int32)
-    scheds = {
+    return {
         "loss0": FaultSchedule.none(topo, events),
         "loss1": FaultSchedule.bernoulli(topo, lossy, 0.01, seed=7),
         "loss10": FaultSchedule.bernoulli(topo, lossy, 0.10, seed=7),
@@ -847,6 +1054,21 @@ def fault_phase(check, launches, log):
             topo, events, [(1, events // 4, (3 * events) // 4),
                            (n - 2, events // 2, events - 1)]),
     }
+
+
+def fault_phase(check, launches, log, singles):
+    """BENCH_fault.json: the δ-family under loss, a partition and churn;
+    the reference runs go into ``singles`` for the sweep phase."""
+    from repro_torch.core import GSet
+    from repro_torch.sync import simulate, topology
+    from repro_torch.sync import workloads as W
+
+    bench = json.loads((REPO / "benchmarks" / "results" /
+                        "BENCH_fault.json").read_text())
+    events, quiet = bench["events"], bench["quiet"]
+    topo = topology.partial_mesh(bench["nodes"], 4)
+    n = topo.num_nodes
+    scheds = fault_scenarios(topo, events, quiet)
     lat, op = GSet(n * events).lattice, W.gset_unique_op(n, events)
     t0 = time.perf_counter()
     runs = 0
@@ -864,6 +1086,7 @@ def fault_phase(check, launches, log):
             check(got == want, f"fault {scenario} {algo}: (tx, mem_avg, "
                                f"conv_round, ttc_rounds, converged) {got} vs "
                                f"{want}")
+            singles["fault", scenario, algo] = r
             runs += 3
     wall = time.perf_counter() - t0
     print(f"BENCH_fault: {runs} runs reproduced, engines bit-identical "
@@ -871,42 +1094,48 @@ def fault_phase(check, launches, log):
     log["bench_fault"] = {"runs": runs, "wall_s": wall}
 
 
-def scale_run(launches, tag, engine, algo, rounds, simulate_fn):
-    """SCALE_RUNS runs, each timed on the host clock around a synchronised
+def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
+              runs=SCALE_RUNS):
+    """``runs`` runs, each timed on the host clock around a synchronised
     device, after a one-round run of the same configuration (which builds
     the op's tables and grows the allocator's pool); every run's launches
     are checked. Returns the last result, ms per round as (median, min,
     max) over the runs and the peak device memory."""
     import torch
 
-    launches.run(f"{tag} warm-up", engine, algo, 1, lambda: simulate_fn(1, 0))
+    launches.run(f"{tag} warm-up", engine, algo, 1, lambda: simulate_fn(1, 0),
+                 configs)
+    gc.collect()                 # what earlier phases left in cycles goes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, r = [], None
-    for _ in range(SCALE_RUNS):
+    for _ in range(runs):
         r = None                           # one result alive at a time
         t0 = time.perf_counter()
-        r = launches.run(tag, engine, algo, rounds, simulate_fn)
+        r = launches.run(tag, engine, algo, rounds, simulate_fn, configs)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / rounds)
     return (r, (statistics.median(times), min(times), max(times)),
             torch.cuda.max_memory_allocated())
 
 
-def scale_row(workload, topo, algo, engine, ms, b_ms, peak, r):
+def scale_row(workload, topo, algo, engine, ms, b_ms, peak, r,
+              runs=SCALE_RUNS):
     med, lo, hi = ms
     return {"workload": workload, "topo": topo, "algo": algo,
             "engine": engine, "ms_per_round": med, "ms_per_round_min": lo,
-            "ms_per_round_max": hi, "runs": SCALE_RUNS,
+            "ms_per_round_max": hi, "runs": runs,
             "bound_ms_per_round": b_ms, "max_memory_allocated": peak,
-            "total_tx": r.total_tx}
+            "total_tx": int(r.sim.tx.sum()) if hasattr(r, "sim")
+            else r.total_tx}
 
 
-def print_scale(tag, ms, b_ms, peak, r):
+def print_scale(tag, ms, b_ms, peak, r, runs=SCALE_RUNS):
     med, lo, hi = ms
-    print(f"{tag}: {med:.3f} ms/round (median of {SCALE_RUNS}, {lo:.3f}-"
+    tx = int(r.sim.tx.sum()) if hasattr(r, "sim") else r.total_tx
+    print(f"{tag}: {med:.3f} ms/round (median of {runs}, {lo:.3f}-"
           f"{hi:.3f}; bound {b_ms:.3f}), peak {peak / 2**30:.2f} GiB, tx "
-          f"{r.total_tx}", flush=True)
+          f"{tx}", flush=True)
 
 
 def ms_bound(nbytes):
@@ -1091,7 +1320,421 @@ def scale_phase(check, launches, log, join_r25):
     log["scale"] = rows
 
 
-# -- phase 6: LWWMap through simulate, the merge entry points, quickstart -----
+# -- phase 6: sweeps and the keyed object store (Retwis) ------------------------
+
+def sweep_phase(check, launches, log, singles):
+    """BENCH_fault.json's scenarios and fig_digest.json's join and heal
+    grids as one ``simulate_sweep`` per algorithm, as
+    ``benchmarks/fig_fault.py`` and ``fig_digest.py`` batch them, on all
+    three engines: every cell equal to the committed value and to its
+    single ``simulate`` run of phase 4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GSet
+    from repro_torch.sync import (DigestSpec, FaultSchedule, SweepSpec,
+                                  simulate_sweep, topology)
+    from repro_torch.sync import workloads as W
+
+    results = REPO / "benchmarks" / "results"
+    t0 = time.perf_counter()
+    cells, timing = 0, {}
+
+    def timed_sweep(tag, algo, rounds, fn):
+        times = {}
+        r = all_engines(check, launches, tag, algo, rounds, fn, times)
+        timing[tag] = {e: {"ms_per_round": ms, "max_memory_allocated": pk}
+                       for e, (ms, pk) in times.items()}
+        return r
+
+    def cell_ok(tag, r, b, single):
+        c = r.cell(b)
+        check(same_run(c, single), f"{tag}: cell {b} differs from its "
+                                   f"single simulate run")
+        return c
+
+    bench = json.loads((results / "BENCH_fault.json").read_text())
+    events, quiet = bench["events"], bench["quiet"]
+    topo = topology.partial_mesh(bench["nodes"], 4)
+    n = topo.num_nodes
+    scheds = fault_scenarios(topo, events, quiet)
+    names = list(bench["cells"])
+    spec = SweepSpec(batch=len(names),
+                     op_fn=W.gset_unique_sweep_op(n, events, (0,)),
+                     faults=[scheds[s] for s in names])
+    lat = GSet(n * events).lattice
+    for algo in bench["cells"][names[0]]["raw"]:
+        tag = f"sweep fault {algo}"
+        r = timed_sweep(tag, algo, events + quiet,
+                        lambda e: simulate_sweep(algo, lat, topo, spec,
+                                                 events, quiet, engine=e))
+        for b, scenario in enumerate(names):
+            c = cell_ok(tag, r, b, singles["fault", scenario, algo])
+            row = bench["cells"][scenario]["raw"][algo]
+            conv = c.convergence_round()
+            got = (c.total_tx, c.avg_mem, conv, conv - events + 1, conv >= 0)
+            want = (row["tx"], row["mem_avg"], row["conv_round"],
+                    row["ttc_rounds"], row["converged"])
+            check(got == want, f"{tag} {scenario}: {got} vs {want}")
+            cells += 1
+
+    fig = json.loads((results / "fig_digest.json").read_text())
+    topo = topology.partial_mesh(fig["nodes"], 4)
+    n, u, dspec = topo.num_nodes, fig["universe"], DigestSpec(
+        fig["block_elems"])
+    for algo, rows in fig["join"].items():
+        keys = list(rows)
+        x0 = torch.stack([join_x0(n, u, rows[k]["divergence"]) for k in keys])
+        spec = SweepSpec(batch=len(keys), op_fn=no_op, x0=x0)
+        tag = f"sweep join {algo}"
+        r = timed_sweep(tag, algo, fig["rounds"],
+                        lambda e: simulate_sweep(
+                            algo, GSet(u).lattice, topo, spec, 0,
+                            fig["rounds"], engine=e, track_convergence=True,
+                            digest=dspec))
+        for b, key in enumerate(keys):
+            c = cell_ok(tag, r, b, singles["join", algo, key])
+            conv = c.convergence_round()
+            row = rows[key]
+            got = (c.total_tx, conv >= 0, conv,
+                   int(c.tx[: conv + 1].sum()) if conv >= 0 else None)
+            want = (row["tx_window"], row["converged"], row["conv_round"],
+                    row["tx_to_conv"])
+            check(got == want, f"{tag} {key}: {got} vs {want}")
+            cells += 1
+    events = fig["events"]
+    groups = (np.arange(n) >= n // 2).astype(np.int32)
+    for algo, rows in fig["heal"].items():
+        keys = list(rows)
+        widths = [rows[k]["partition_rounds"] for k in keys]
+        faults = [FaultSchedule.partition(topo, events, 0, w, groups).compose(
+            FaultSchedule.bernoulli(topo, events, 0.02, seed=11))
+            for w in widths]
+        spec = SweepSpec(batch=len(keys),
+                         op_fn=W.gset_unique_sweep_op(n, events, (0,)),
+                         faults=faults)
+        tag = f"sweep heal {algo}"
+        r = timed_sweep(tag, algo, 3 * events,
+                        lambda e: simulate_sweep(
+                            algo, GSet(n * events).lattice, topo, spec,
+                            events, 2 * events, engine=e, digest=dspec))
+        for b, key in enumerate(keys):
+            c = cell_ok(tag, r, b, singles["heal", algo, key])
+            conv, w, row = c.convergence_round(), widths[b], rows[key]
+            got = (c.total_tx, int(c.tx[w:].sum()), conv - events + 1,
+                   conv >= 0)
+            want = (row["tx_total"], row["tx_post_heal"], row["ttc_rounds"],
+                    row["converged"])
+            check(got == want, f"{tag} {key}: {got} vs {want}")
+            cells += 1
+    wall = time.perf_counter() - t0
+    print(f"sweeps: {cells} cells (BENCH_fault, fig_digest join + heal) on "
+          f"3 engines equal to the committed values and their single runs "
+          f"({wall:.1f} s)", flush=True)
+    for tag, per in timing.items():
+        print(f"  {tag}: " + ", ".join(
+            f"{e} {v['ms_per_round']:.3f} ms/round "
+            f"({v['max_memory_allocated'] / 2**20:.1f} MiB peak)"
+            for e, v in per.items()), flush=True)
+    log["sweeps"] = {"cells": cells, "wall_s": wall, "timing": timing}
+
+
+RETWIS_ZIPFS = (0.5, 0.75, 1.0, 1.25, 1.5)
+# (nodes, objects, slots, active rounds, quiet rounds, ops per node): the
+# drain is mesh50 d4's diameter, 13 rounds — a δ of the last active round
+# needs them all to reach every node (in 10 no object converges)
+RETWIS_PAPER = (50, 30_000, 64, 100, 13, 10)
+# (nodes, objects, slots, rounds, ops per node, chunk rounds)
+STORE_1M = (16, 1 << 20, 32, 20, 6, 5)
+MILLION_RUNS = 3      # timed runs of the million-object store per engine
+
+
+def retwis_store(zipf, nodes, objects, slots, rounds, ops, seed=0):
+    """One Retwis store as ``benchmarks/fig11_retwis.py`` builds it: the
+    versioned-slot lattice, the seeded op stream (and its count table) and
+    the per-object byte weights."""
+    from repro_torch.core import MapLattice
+    from repro_torch.core import value_lattices as vl
+    from repro_torch.sync import StoreSpec
+    from repro_torch.sync import workloads as W
+
+    counts = W.retwis(objects, nodes, rounds, ops, zipf, seed=seed) \
+        .update_counts()
+    lat = MapLattice(slots, vl.max_int(), "retwis").build()
+    spec = StoreSpec(objects=objects,
+                     op_fn=W.versioned_slot_op(counts, slots),
+                     weights=W.retwis_weights(objects))
+    return lat, spec, counts
+
+
+def retwis_row(res, nodes):
+    """A fig11 row's numbers from a store result, as fig11_retwis.py
+    computes them (float64 from the engine's integers)."""
+    tx, mem = res.store_tx_bytes, res.store_mem_bytes
+    half = len(tx) // 2
+    return {"tx_mb_node_h1": float(tx[:half].sum() / nodes / 1e6),
+            "tx_mb_node_h2": float(tx[half:].sum() / nodes / 1e6),
+            "mem_mb_node_h1": float(mem[:half].mean() / nodes / 1e6),
+            "mem_mb_node_h2": float(mem[half:].mean() / nodes / 1e6),
+            "cpu": float(res.store_cpu.sum())}
+
+
+def retwis_phase(check, launches, log):
+    """``benchmarks/results/fig11_retwis.json`` at its committed default
+    shape (mesh16 d4, 96 objects, 32 slots, 40 rounds, 6 ops per node),
+    value for value: every zipf row on ``reference``, ``fused`` and
+    ``mega`` bit-identical to it at zipf 1.0, and the resync block."""
+    from repro_torch.sync import simulate_store, topology
+
+    fig = json.loads((REPO / "benchmarks" / "results" /
+                      "fig11_retwis.json").read_text())
+    nodes, objects, slots, rounds, ops = 16, 96, 32, 40, 6
+    topo = topology.partial_mesh(nodes, 4)
+    t0 = time.perf_counter()
+    at_1 = {}
+    for zipf in RETWIS_ZIPFS:
+        lat, spec, _ = retwis_store(zipf, nodes, objects, slots, rounds, ops)
+        row = {}
+        for algo in ("classic", "bprr"):
+            res = launches.run(
+                f"retwis zipf {zipf} {algo}", "reference", algo, rounds,
+                lambda: simulate_store(algo, lat, topo, spec, rounds))
+            if zipf == 1.0:
+                at_1[algo] = (res, lat, spec)
+            row[algo] = retwis_row(res, nodes)
+        row["tx_ratio_h2"] = row["classic"]["tx_mb_node_h2"] / max(
+            row["bprr"]["tx_mb_node_h2"], 1e-9)
+        row["cpu_overhead"] = row["classic"]["cpu"] / max(
+            row["bprr"]["cpu"], 1e-9) - 1.0
+        want = fig[f"zipf_{zipf}"]
+        check(row == want, f"retwis zipf {zipf}: {row} vs {want}")
+    identical = True
+    for algo, (ref, lat, spec) in at_1.items():
+        for engine in ("fused", "mega"):
+            res = launches.run(
+                f"retwis zipf 1.0 {algo} {engine}", engine, algo, rounds,
+                lambda: simulate_store(algo, lat, topo, spec, rounds,
+                                       engine=engine), objects)
+            identical &= same_run(ref, res)
+    check(identical == fig["engines_bit_identical"],
+          f"retwis engines_bit_identical {identical}")
+    resync = {}
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, rounds, ops)
+    for algo in ("state_driven", "digest_driven"):
+        res = launches.run(
+            f"retwis resync {algo}", "reference", algo, rounds + 10,
+            lambda: simulate_store(algo, lat, topo, spec, rounds, 10,
+                                   track_convergence=True))
+        conv = res.convergence_round()
+        resync[algo] = {
+            "tx_mb_node": float(res.total_tx_bytes / nodes / 1e6),
+            "all_objects_converged": bool((conv >= 0).all()),
+            "last_convergence_round": int(conv.max())}
+    check(resync == fig["resync"], f"retwis resync {resync} vs "
+                                   f"{fig['resync']}")
+    wall = time.perf_counter() - t0
+    print(f"fig11_retwis: {len(RETWIS_ZIPFS)} zipf rows, "
+          f"engines_bit_identical and the resync block reproduced "
+          f"({wall:.1f} s)", flush=True)
+    log["fig11_retwis"] = {"wall_s": wall}
+
+
+def sampled_objects(objects, seed=0):
+    """The first, the last and 6 seeded draws between them."""
+    import numpy as np
+
+    mid = np.random.default_rng(seed).choice(
+        np.arange(1, objects - 1), 6, replace=False)
+    return [0, objects - 1] + sorted(int(o) for o in mid)
+
+
+def retwis_paper_phase(check, launches, log):
+    """Retwis at the repo's 50-node / 30K-object setting
+    (``benchmarks/fig11_retwis.py`` docstring and ``--full``): mesh50 d4,
+    30,000 objects (follower / wall / timeline), 64 slots, 100 active + 13
+    quiet rounds (the mesh's diameter), 10 ops per node, zipf 1.0; classic
+    and bprr on mega,
+    fused and reference. All engines equal, 8 sampled objects equal to
+    their own ``simulate``, every object converged after the drain; ms per
+    round, peak memory and the round's byte bound."""
+    import torch
+
+    from repro_torch.sync import (cluster_uniform, simulate, simulate_store,
+                                  topology)
+    from repro_torch.sync import workloads as W
+
+    nodes, objects, slots, active, quiet, ops = RETWIS_PAPER
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, counts = retwis_store(1.0, nodes, objects, slots, active, ops)
+    plane = objects * nodes * slots * 4
+    rows, t0 = [], time.perf_counter()
+    for algo in ("classic", "bprr"):
+        k = 5 if algo == "bprr" else 1
+        b_ms = ms_bound((2 * k + 3) * plane)
+        runs = {}
+        for engine in ("mega", "fused", "reference"):
+            tag = f"retwis paper {algo} {engine}"
+            r, ms, peak = scale_run(
+                launches, tag, engine, algo, active + quiet,
+                lambda a=active, q=quiet: simulate_store(
+                    algo, lat, topo, spec, a, q, engine=engine), objects)
+            rows.append(scale_row("retwis_mesh50_30k_s64", topo.name, algo,
+                                  engine, ms, b_ms, peak, r))
+            print_scale(tag, ms, b_ms, peak, r)
+            runs[engine] = r
+        for engine in ("fused", "reference"):
+            check(same_run(runs["mega"], runs[engine]),
+                  f"retwis paper {algo}: {engine} differs from mega")
+        r = runs["mega"]
+        check(bool(cluster_uniform(lat, r.final_x, batched=True).all()),
+              f"retwis paper {algo}: an object did not converge")
+        for o in sampled_objects(objects):
+            single = launches.run(
+                f"retwis paper {algo} object {o}", "mega", algo,
+                active + quiet, lambda o=o: simulate(
+                    algo, lat, topo,
+                    W.versioned_slot_cell_op(counts, o, slots), active,
+                    quiet, engine="mega"))
+            check(same_run(r.object_result(o), single),
+                  f"retwis paper {algo}: object {o} differs from its "
+                  f"simulate run")
+        del runs, r
+        torch.cuda.empty_cache()
+    prof = {}
+    for engine in ("mega", "fused"):
+        prof[engine] = profile_rounds(
+            check, f"retwis paper bprr {engine}",
+            lambda e=engine: launches.run(
+                f"retwis paper bprr {e} profile", e, "bprr", 3,
+                lambda: simulate_store("bprr", lat, topo, spec, 3, 0,
+                                       engine=e), objects))
+    wall = time.perf_counter() - t0
+    log["retwis_paper"] = {"rows": rows, "profile": prof, "wall_s": wall}
+
+
+def million_phase(check, launches, log):
+    """A million objects, chunked and resumed: 1,048,576 objects of the
+    committed Retwis shape (mesh16 d4, 32 slots, 6 ops per node, zipf 1.0),
+    bprr, 20 rounds in chunks of 5, ``object_metrics=False``: 16,777,216
+    kernel rows and 1,048,576 ``round_step`` configs, timed as
+    :func:`scale_run` times (a one-round warm-up, then the median, min and
+    max of ``MILLION_RUNS`` runs). ``mega`` and ``fused`` agree; a run
+    checkpointing at every boundary (under
+    ``build/``) resumed from round 10 equals the uninterrupted run; the
+    reduced aggregates equal the sums of an ``object_metrics=True`` run;
+    8 sampled objects equal their own ``simulate``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.sync import (resume_store, simulate, simulate_store,
+                                  topology)
+    from repro_torch.sync import workloads as W
+
+    nodes, objects, slots, rounds, ops, chunk = STORE_1M
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, counts = retwis_store(1.0, nodes, objects, slots, rounds, ops)
+    ckdir = REPO / "build" / "store_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    plane = objects * nodes * slots * 4
+    b_ms = ms_bound(13 * plane)
+
+    class KeepTen(Checkpointer):
+        """Saves every boundary; keeps only round 10's bundle on disk (the
+        one the resume reads): a bundle is 12 GiB."""
+
+        def save(self, step, state, extra=None):
+            out = super().save(step, state, extra)
+            for s in self.available_steps():
+                if s not in (10, step):
+                    shutil.rmtree(self._path(s))
+            return out
+
+    def store(engine, active=rounds, **kw):
+        return simulate_store("bprr", lat, topo, spec, active, engine=engine,
+                              chunk_rounds=chunk, **kw)
+
+    def aggregates(r):
+        return [getattr(r, v) for v in ("store_tx", "store_mem", "store_cpu",
+                                        "store_max_mem_node")]
+
+    def same_store(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(
+            aggregates(a), aggregates(b))) and torch.equal(a.final_x,
+                                                           b.final_x)
+
+    rows, runs, t0 = [], {}, time.perf_counter()
+    for engine in ("mega", "fused"):
+        tag = f"store 1M bprr {engine}"
+        r, ms, peak = scale_run(
+            launches, tag, engine, "bprr", rounds,
+            lambda a=rounds, q=0: store(engine, a, object_metrics=False),
+            objects, runs=MILLION_RUNS)
+        rows.append(scale_row("retwis_mesh16_1M_s32", topo.name, "bprr",
+                              engine, ms, b_ms, peak, r, runs=MILLION_RUNS))
+        print_scale(tag, ms, b_ms, peak, r, runs=MILLION_RUNS)
+        runs[engine] = r
+        torch.cuda.empty_cache()
+    base = runs["mega"]
+    check(same_store(base, runs["fused"]), "store 1M: fused differs from mega")
+    del runs
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    full = launches.run("store 1M bprr mega checkpointed", "mega", "bprr",
+                        rounds, lambda: store("mega", object_metrics=False,
+                                              checkpoint=KeepTen(ckdir)),
+                        objects)
+    save_s = time.perf_counter() - t
+    check(same_store(base, full), "store 1M: the checkpointed run differs")
+    del full
+    torch.cuda.empty_cache()
+    class ReadOnly(Checkpointer):
+        """Restores; writes nothing (the resumed run's own boundaries are
+        not needed here)."""
+
+        def save(self, step, state, extra=None):
+            return ""
+
+    t = time.perf_counter()
+    res = launches.run("store 1M bprr mega resumed", "mega", "bprr",
+                       rounds - 10, lambda: resume_store(
+                           "bprr", lat, topo, spec, rounds, engine="mega",
+                           checkpoint=ReadOnly(ckdir), step=10,
+                           object_metrics=False), objects)
+    resume_s = time.perf_counter() - t
+    check(same_store(base, res), "store 1M: resume from round 10 differs "
+                                 "from the uninterrupted run")
+    del res
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    per = launches.run("store 1M bprr mega object_metrics", "mega", "bprr",
+                       rounds, lambda: store("mega", object_metrics=True),
+                       objects)
+    check(same_store(base, per), "store 1M: the reduced aggregates differ "
+                                 "from the per-object sums")
+    for o in sampled_objects(objects):
+        single = launches.run(
+            f"store 1M object {o}", "mega", "bprr", rounds,
+            lambda o=o: simulate("bprr", lat, topo,
+                                 W.versioned_slot_cell_op(counts, o, slots),
+                                 rounds, engine="mega"))
+        check(same_run(per.object_result(o), single),
+              f"store 1M: object {o} differs from its simulate run")
+    del per
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"store 1M: checkpointed run {save_s:.1f} s (4 bundles of "
+          f"{(6 * plane + 4 * objects * nodes) / 2**30:.1f} GiB), resume "
+          f"from round 10 {resume_s:.1f} s; phase {wall:.1f} s", flush=True)
+    log["store_1m"] = {"rows": rows, "checkpointed_s": save_s,
+                       "resume_s": resume_s, "wall_s": wall}
+
+
+# -- phase 7: LWWMap through simulate, the merge entry points, quickstart -----
 
 def lww_write_op(blocks):
     """The LWWMap op of the scale runs: every node writes (its current
@@ -1309,7 +1952,7 @@ def profile_rounds(check, tag, run):
 
 def profile_phase(check, log):
     """Where a round's time goes: 3 active GMap rounds (4,194,304 keys,
-    mesh, bprr) per kernel engine, 3 LWWMap rounds of phase 6 (reference),
+    mesh, bprr) per kernel engine, 3 LWWMap rounds of phase 7 (reference),
     and 3 digest_driven rounds of the GMap join (a) on ``fused``. Informs
     PERF.md."""
     import torch
@@ -1361,8 +2004,8 @@ SOURCES = {
     "lex_join_delta": ("src/repro_torch/csrc/lex_join.cu",
                        "src/repro/kernels/lex_join.py:43"),
 }
-# the kernels of the sync engines' main path (phases 4-5) and of the
-# lex-pair one (phase 6: the public elementwise entry points)
+# the kernels of the sync engines' main path (phases 4-6) and of the
+# lex-pair one (phase 7: the public elementwise entry points)
 SYNC_KERNELS = ("round_step", "round_recv", "buffer_fold", "digest_blocks",
                 "masked_extract")
 ELEMENTWISE = ("join", "delta_extract", "lex_join_delta")
@@ -1416,20 +2059,26 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     grid_errs = timed("kernel_grid", kernel_grid, check, dev, log)
+    for name, e in timed("batch_kernel_grid", batch_kernel_grid, check, dev,
+                         log).items():
+        grid_errs[name] = max(grid_errs[name], e)
     grid_errs.update(timed("elementwise_grid", elementwise_grid, check, dev,
                            log))
     timings = {name: t + (None,) for name, t in timed(
         "kernel_timings", kernel_timings, check, dev, log).items()}
     timings.update(timed("elementwise_timings", elementwise_timings, check,
                          dev, log))
+    store_shapes = timed("store_kernel_timings", store_kernel_timings, check,
+                         dev, log)
 
     # 4 + 5. the sync engines' main path, with the launch counters zeroed
     # around it
     kernels.reset_launches()
     expect = Launches(check)
+    singles = {}
     timed("paper", paper_phase, check, expect, log)
-    join_r25 = timed("fig_digest", digest_phase, check, expect, log)
-    timed("bench_fault", fault_phase, check, expect, log)
+    join_r25 = timed("fig_digest", digest_phase, check, expect, log, singles)
+    timed("bench_fault", fault_phase, check, expect, log, singles)
     timed("scale", scale_phase, check, expect, log, join_r25)
     launches = kernels.launch_counts()
     check(launches == expect.total, f"main-path launches {launches}, the "
@@ -1438,7 +2087,23 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was never launched on the main "
                                   f"path")
 
-    # 6. the lex-pair main path (LWWMap, the merge entry points, the
+    # 6. the batched main path (sweeps and the keyed store), with the
+    # counters zeroed around it
+    kernels.reset_launches()
+    expect6 = Launches(check)
+    timed("sweeps", sweep_phase, check, expect6, log, singles)
+    del singles
+    timed("fig11_retwis", retwis_phase, check, expect6, log)
+    timed("retwis_paper", retwis_paper_phase, check, expect6, log)
+    timed("store_1m", million_phase, check, expect6, log)
+    launches6 = kernels.launch_counts()
+    check(launches6 == expect6.total, f"batched main-path launches "
+                                      f"{launches6}, expected {expect6.total}")
+    for name in SYNC_KERNELS:
+        check(launches6[name] > 0, f"{name} was never launched on the "
+                                   f"batched main path")
+
+    # 7. the lex-pair main path (LWWMap, the merge entry points, the
     # quickstart), with the counters zeroed around it: the simulations
     # launch nothing, the merges one join, one delta_extract and two
     # lex_join_delta, the quickstart one delta_extract
@@ -1461,11 +2126,17 @@ def main() -> int:
     for name, (src, replaces) in SOURCES.items():
         e, ms, plain_ms, b_ms, b_by, lib_ms = timings[name]
         err = max(e, grid_errs[name])
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "equal": err == 0, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": launches[name] + launches6[name],
+               "max_abs_err": err, "equal": err == 0, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms,
+               "launches_by_path": {"unbatched": launches[name],
+                                    "batched": launches6[name]}}
+        if name in store_shapes:
+            row["store_shapes"] = store_shapes[name]
+        rows.append(row)
     log["kernels"] = rows
     log["failed"] = check.failed
     out = REPO / "chiprun_out"

@@ -8,7 +8,11 @@ are contiguous operands of the port's kernels: the per-origin buffer
 ([N, P+1, U] ↔ [P+1, N, U]), ``state_driven``'s response buffer
 ([N, P, U] ↔ [P, N, U]) and ``digest_driven``'s ``aux`` (remote digests
 [N, P, nB, 3] ↔ [P, N, nB, 3], have-one flags [N, P] ↔ [P, N]); the carry
-converters swap those two axes. BitGSet words and digests change type:
+converters swap those two axes. A batched carry (a sweep's or a store's,
+``batched=True``) has a leading config axis on both sides and its slot axis
+after the config and node axes in the JAX package: per-origin buffers
+[B, N, P+1, U] ↔ [P+1, B, N, U], digests [B, N, P, nB, 3] ↔
+[P, B, N, nB, 3]. BitGSet words and digests change type:
 uint32 in numpy, int32 bit-views in torch (same bits). Bool (GSet) stays
 bool. A tuple state (an LWWMap's ``(t, v)``, a product's components) and
 its buffers cross leaf by leaf, each leaf's slot axis swapped alike.
@@ -54,12 +58,15 @@ def _per_slot(x, buf) -> bool:
         np.ndim(tree_leaves(buf)[0]) == np.ndim(tree_leaves(x)[0]) + 1
 
 
-def carry_to_torch(x, buf, buf_elems, aux=None, device="cpu") -> AlgoCarry:
-    """A JAX ``AlgoCarry``'s leaves (numpy) -> the port's carry."""
+def carry_to_torch(x, buf, buf_elems, aux=None, device="cpu",
+                   batched: bool = False) -> AlgoCarry:
+    """A JAX ``AlgoCarry``'s leaves (numpy) -> the port's carry; with
+    ``batched`` the leaves carry a leading config axis."""
+    lead = 2 if batched else 1
     if _per_slot(x, buf):
-        buf = tree_map(lambda a: np.asarray(a).swapaxes(0, 1), buf)
+        buf = tree_map(lambda a: np.moveaxis(np.asarray(a), lead, 0), buf)
     if aux is not None:
-        aux = tuple(to_torch(np.asarray(a).swapaxes(0, 1), device)
+        aux = tuple(to_torch(np.moveaxis(np.asarray(a), lead, 0), device)
                     for a in aux)
     return AlgoCarry(x=to_torch(x, device),
                      buf=None if buf is None else to_torch(buf, device),
@@ -67,16 +74,19 @@ def carry_to_torch(x, buf, buf_elems, aux=None, device="cpu") -> AlgoCarry:
                      aux=aux)
 
 
-def carry_to_numpy(carry: AlgoCarry, words: bool = False):
+def carry_to_numpy(carry: AlgoCarry, words: bool = False,
+                   batched: bool = False):
     """The port's carry -> ``(x, buf, buf_elems, aux)`` numpy arrays in the
-    JAX package's types (digests as uint32 words)."""
+    JAX package's types and layouts (digests as uint32 words); with
+    ``batched`` the leaves carry a leading config axis."""
+    lead = 2 if batched else 1
     buf, aux = carry.buf, carry.aux
     if _per_slot(carry.x, buf):
-        buf = tree_map(lambda a: a.movedim(0, 1), buf)
+        buf = tree_map(lambda a: a.movedim(0, lead), buf)
     if aux is not None:
         dig, have = aux
-        aux = (to_numpy(dig.movedim(0, 1), words=True),
-               to_numpy(have.movedim(0, 1)))
+        aux = (to_numpy(dig.movedim(0, lead), words=True),
+               to_numpy(have.movedim(0, lead)))
     return (to_numpy(carry.x, words),
             None if buf is None else to_numpy(buf, words),
             to_numpy(carry.buf_elems), aux)

@@ -68,6 +68,46 @@ class Lattice:
     # ("max": pointwise max, bool-or as 0/1 max; "bitor": bit-packed sets),
     # or None if only the reference engine applies.
     kernel_kind: str | None = None
+    # Weighted element accounting: wsize(x, w) sums ``w`` over x's non-⊥
+    # irreducibles instead of counting them. ``w`` broadcasts against the
+    # universe axis (per-slot weights, right-aligned), or, wrapped in
+    # :class:`BatchWeights`, against the leading axes of every leaf (per-
+    # object byte weights of the keyed store). ``wsize(x, 1) == size(x)``.
+    wsize: Callable[[State, Any], Tensor] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchWeights:
+    """Weights for :attr:`Lattice.wsize` aligned to the LEADING (batch)
+    axes of every state leaf: each leaf right-pads ``w`` with singleton
+    axes up to its own rank (:func:`align_weights`), so a product whose
+    components have different universe ranks (a [B, N, U] map beside a
+    [B, N] register) prices every leaf on its own batch axes."""
+
+    w: Any
+
+
+def align_weights(w, mask: Tensor):
+    """Resolve a ``wsize`` weight operand against one leaf's irreducible
+    mask (or per-word counts): :class:`BatchWeights` are left-aligned
+    (right-padded with singletons to the mask's rank), anything else is a
+    tensor broadcast right-aligned as it is."""
+    if not isinstance(w, BatchWeights):
+        return torch.as_tensor(w, device=mask.device)
+    wa = torch.as_tensor(w.w, device=mask.device)
+    pad = mask.ndim - wa.ndim
+    if pad < 0:
+        raise ValueError(
+            f"BatchWeights rank {wa.ndim} exceeds the leaf mask rank "
+            f"{mask.ndim}: batch weights must index leading axes of every "
+            f"leaf")
+    return wa.reshape(tuple(wa.shape) + (1,) * pad)
+
+
+def weighted_sum(counts: Tensor, w) -> Tensor:
+    """Σ over the universe axis of per-slot irreducible counts (a bool
+    mask, or per-word popcounts) times their aligned weights."""
+    return (counts * align_weights(w, counts)).sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +151,9 @@ class MapLattice:
         def is_bottom(a):
             return torch.all(v.is_bottom(a), dim=-1)
 
+        def wsize(a, w):
+            return weighted_sum(irreducible_mask(a), w)
+
         return Lattice(
             name=self.name,
             bottom=bottom,
@@ -123,6 +166,7 @@ class MapLattice:
             novel_mask=novel_mask,
             # struct-of-arrays points (lex pairs) take the reference engine
             kernel_kind=v.kernel_kind if v.arity == 1 else None,
+            wsize=wsize,
         )
 
 
@@ -156,6 +200,15 @@ def product(name: str, parts: Sequence[Lattice]) -> Lattice:
             out = s if out is None else out + s
         return out
 
+    def wsize(a, w):
+        # an irreducible of A × B lives in one component: weighted sizes
+        # add like sizes do, each component aligning w on its own leaves
+        out = None
+        for p, x in zip(parts, a):
+            s = p.wsize(x, w)
+            out = s if out is None else out + s
+        return out
+
     return Lattice(
         name=name,
         bottom=lambda device=None: tuple(p.bottom(device) for p in parts),
@@ -169,6 +222,7 @@ def product(name: str, parts: Sequence[Lattice]) -> Lattice:
                                          for p, x in zip(parts, a)),
         novel_mask=lambda a, b: tuple(p.novel_mask(x, y)
                                       for p, x, y in zip(parts, a, b)),
+        wsize=wsize,
     )
 
 
@@ -232,6 +286,10 @@ def linear_sum(name: str, low: Lattice, high: Lattice, is_high=None) -> Lattice:
         tx, ax, bx = x
         return torch.where(tx == 0, low.size(ax), high.size(bx))
 
+    def wsize(x, w):
+        tx, ax, bx = x
+        return torch.where(tx == 0, low.wsize(ax, w), high.wsize(bx, w))
+
     def is_bottom(x):
         tx, ax, _ = x
         return torch.logical_and(tx == 0, low.is_bottom(ax))
@@ -243,6 +301,7 @@ def linear_sum(name: str, low: Lattice, high: Lattice, is_high=None) -> Lattice:
                                     high.irreducible_mask(x[2])),
         novel_mask=lambda a, b: (low.novel_mask(a[1], b[1]),
                                  high.novel_mask(a[2], b[2])),
+        wsize=wsize,
     )
 
 

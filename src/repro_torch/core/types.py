@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import value_lattices as vl
-from repro_torch.core.lattice import Lattice, MapLattice, product
+from repro_torch.core.lattice import Lattice, MapLattice, product, weighted_sum
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 
@@ -174,6 +174,8 @@ class BitGSet:
             irreducible_mask=lambda a: a != 0,          # word-level view
             novel_mask=lambda a, b: delta(a, b) != 0,
             kernel_kind="bitor",
+            # the bits of one word share its weight
+            wsize=lambda a, wt: weighted_sum(popcount32(a), wt),
         )
 
     def add_mask(self, s, mask_words):

@@ -64,8 +64,10 @@
 // - Grid. A persistent grid: (blocks per config) × B, the blocks per config
 //   the tiles or what the SMs hold resident
 //   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), whichever is fewer.
-//   The wrapper (kernels/round_step.py plan) picks VB and the stages that
-//   fit shared memory.
+//   More than 65,535 configs (a keyed store's objects) launch in chunks of
+//   at most 65,535 along gridDim.y, each chunk's first config `b0` passed
+//   in; every offset is 64-bit. The wrapper (kernels/round_step.py plan)
+//   picks VB and the stages that fit shared memory.
 
 #include "common.cuh"
 
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(PM ? 512 : 1024) round_step_kernel(
     T* __restrict__ xo, T* bo, T* __restrict__ inbox, int32_t* nodecnt,
     int32_t* ssend, int32_t* cnt, int32_t* dsz, int nb, int n, int p, int k,
     int per_origin, int extracts, long long u, int stages, int table_bytes,
-    int bar_bytes) {
+    int bar_bytes, int b0) {
   using L = Lane<T, VB>;
   constexpr int V = L::V;
   constexpr int TC = 32 * V;                   // tile columns
@@ -143,7 +145,7 @@ __global__ void __launch_bounds__(PM ? 512 : 1024) round_step_kernel(
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int b = blockIdx.y;
+  const int b = b0 + blockIdx.y;
   const int self_slot = per_origin ? k - 1 : 0;
   const long long plane = (long long)nb * n * u;   // a [B, N, U] plane
   for (int i = threadIdx.x; i < np; i += blockDim.x) {
@@ -535,6 +537,8 @@ static long long grid_x(int threads, long long smem_bytes, long long tiles,
   return g < 1 ? 1 : g;
 }
 
+constexpr int MAX_GRID_Y = 65535;   // configs a launch (kernels/round_step.py)
+
 template <class T, class Op, int VB, int PM>
 static int launch(const void* delta, const void* x, const void* buf,
                   const void* active, const void* delivered, const void* nbrs,
@@ -545,21 +549,26 @@ static int launch(const void* delta, const void* x, const void* buf,
                   int bar_bytes, long long smem_bytes, long long* blocks,
                   cudaStream_t stream) {
   constexpr int TC = 32 * Lane<T, VB>::V;
-  long long g = grid_x<T, Op, VB, PM>(threads, smem_bytes, (u + TC - 1) / TC,
-                                      nb);
-  if (g < 0) return static_cast<int>(-g);
-  if (blocks != nullptr) *blocks = g;
-  dim3 grid((unsigned)g, (unsigned)nb);
-  round_step_kernel<T, Op, VB, PM><<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const T*>(delta), static_cast<const T*>(x),
-      static_cast<const T*>(buf), static_cast<const int32_t*>(active),
-      static_cast<const int32_t*>(delivered),
-      static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(rev),
-      static_cast<T*>(xo), static_cast<T*>(bo), static_cast<T*>(inbox),
-      static_cast<int32_t*>(nodecnt), static_cast<int32_t*>(ssend),
-      static_cast<int32_t*>(cnt), static_cast<int32_t*>(dsz), nb, n, p, k,
-      per_origin, extracts, u, stages, table_bytes, bar_bytes);
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < nb; b0 += MAX_GRID_Y) {
+    const int chunk = nb - b0 < MAX_GRID_Y ? nb - b0 : MAX_GRID_Y;
+    long long g = grid_x<T, Op, VB, PM>(threads, smem_bytes,
+                                        (u + TC - 1) / TC, chunk);
+    if (g < 0) return static_cast<int>(-g);
+    if (blocks != nullptr) *blocks = g;
+    dim3 grid((unsigned)g, (unsigned)chunk);
+    round_step_kernel<T, Op, VB, PM><<<grid, threads, smem_bytes, stream>>>(
+        static_cast<const T*>(delta), static_cast<const T*>(x),
+        static_cast<const T*>(buf), static_cast<const int32_t*>(active),
+        static_cast<const int32_t*>(delivered),
+        static_cast<const int32_t*>(nbrs), static_cast<const int32_t*>(rev),
+        static_cast<T*>(xo), static_cast<T*>(bo), static_cast<T*>(inbox),
+        static_cast<int32_t*>(nodecnt), static_cast<int32_t*>(ssend),
+        static_cast<int32_t*>(cnt), static_cast<int32_t*>(dsz), nb, n, p, k,
+        per_origin, extracts, u, stages, table_bytes, bar_bytes, b0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // uint8 lanes move 4 bytes: a lane keeps one element a register, so wider
@@ -597,7 +606,8 @@ static int by_tally(int pm, int vb, A... a) {
 // (REG_TALLY_P: register tallies, N <= 16 and P <= pm, `threads` = 32·N;
 // 0: shared tallies, `threads` = 32·min(N, 32)) and the shared memory:
 // table_bytes of int tables, bar_bytes of mbarriers, then the sends and
-// the ring. `blocks` (nullable) receives the blocks per config.
+// the ring. `blocks` (nullable) receives the blocks per config. Any B >= 1:
+// beyond 65,535 configs the launch is cut into chunks of 65,535.
 extern "C" int round_step_launch(
     int kind, const void* delta, const void* x, const void* buf,
     const void* active, const void* delivered, const void* nbrs,
@@ -606,7 +616,7 @@ extern "C" int round_step_launch(
     int per_origin, int extracts, long long u, int vb, int pm, int stages,
     int threads, int table_bytes, int bar_bytes, long long smem_bytes,
     long long* blocks, void* stream) {
-  if (nb < 1 || nb > 65535 || n < 1 || p < 1 || k < 0 || u < 1 ||
+  if (nb < 1 || n < 1 || p < 1 || k < 0 || u < 1 ||
       (per_origin && k != p + 1) || (extracts && k == 0) ||
       threads != 32 * (pm ? n : (n < 32 ? n : 32)) || (pm && (n > 16 || p > pm)) ||
       (stages != 0 && (vb == 0 || stages < 2 || bar_bytes < 8 * stages)))

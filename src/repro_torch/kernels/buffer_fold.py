@@ -62,7 +62,8 @@ def _launch(buf: torch.Tensor, kind: str) -> torch.Tensor:
 
 def buffer_fold(buf: torch.Tensor, *, kind: str = "max"):
     """Leave-one-out sends of ``buf`` along its leading slot axis:
-    [K, ...] -> [K-1, ...]. A CPU tensor takes the plain version; a CUDA
+    [K, ...] -> [K-1, ...] (the rest may hold a batch's (config, node)
+    axes). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (contiguous, bool/uint8/int32 for ``max``,
     int32 bit-views for ``bitor``) or raises."""
     v = B.kernel_view(buf, kind)

@@ -98,9 +98,10 @@ def _launch(x, block_elems: int, kind: str):
 def digest_blocks(x, *, block_elems: int, kind: str = "max"):
     """Digest of states x [..., U] (bool, uint8, int32; int32 bit-views for
     ``bitor``) -> int32 [..., ceil(U / block_elems), 3]. The last block is
-    zero-padded before hashing, as in the JAX package. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (contiguous) or
-    raises."""
+    zero-padded before hashing, as in the JAX package. The leading axes
+    (a batch's (config, node) axes) are the
+    kernel's rows. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (contiguous) or raises."""
     if block_elems < 8 or block_elems & (block_elems - 1):
         raise ValueError(f"block_elems must be a power of two >= 8, got "
                          f"{block_elems}")

@@ -53,8 +53,9 @@ def _launch(x, masks, block_elems: int):
 def masked_extract(x, block_masks, *, block_elems: int):
     """Per-slot Δ(state, block mask): x [..., U] (bool, uint8, int32),
     ``block_masks`` bool/int [P, ..., ceil(U / block_elems)] -> [P, ..., U]
-    in x's dtype. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (x contiguous) or raises."""
+    in x's dtype. The leading axes (a batch's (config, node) axes) are
+    the kernel's rows. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (x contiguous) or raises."""
     lead, u = tuple(x.shape[:-1]), x.shape[-1]
     p = block_masks.shape[0]
     nb = -(-u // block_elems)

@@ -20,7 +20,11 @@ launches = 0          # kernel launches since the last reset (CUDA only)
 
 _SIGNATURE = {"round_recv_launch": [
     ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p]}
+SHORT_VECS = 32       # rows of at most this many vectors: one lane group a row
+MAX_BLOCKS = 1 << 20  # grid cap (short rows' blocks, long rows' gridDim.y);
+                      # the kernel grid-strides beyond it
 
 
 def plain(d, x, active, kind: str = "max", emit_stored: bool = True,
@@ -48,8 +52,6 @@ def _launch(d, x, active, kind, emit_stored, emit_cov):
     global launches
     B.check_cuda("round_recv", d, x, active)
     p, m, u = d.shape
-    if m > 65535:
-        raise ValueError(f"round_recv: {m} rows; the kernel takes <= 65535")
     dev = x.device
     xo = torch.empty_like(x)
     stored = torch.empty_like(d) if emit_stored else None
@@ -61,10 +63,24 @@ def _launch(d, x, active, kind, emit_stored, emit_cov):
     err = lib.round_recv_launch(
         B.KIND_CODES[(kind, x.dtype)], B.ptr(d), B.ptr(x), B.ptr(active),
         B.ptr(xo), B.ptr(stored), B.ptr(cov), B.ptr(cnt), B.ptr(dsz),
-        p, m, u, B.stream_handle())
+        p, m, u, int(vectorized(u, x.element_size(), d, x, xo, stored)),
+        MAX_BLOCKS, B.stream_handle())
     B.check_launch(lib, err, "round_recv")
     launches += 1
     return xo, stored, cov, cnt, dsz
+
+
+def vectorized(u: int, elem_size: int, *tensors) -> bool:
+    """Lanes move 16 bytes: every row is a whole number of 16-byte vectors
+    and every base is 16-byte aligned (None skipped)."""
+    return (u * elem_size) % 16 == 0 and all(
+        t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def short_rows(u: int, elem_size: int, vec: bool) -> bool:
+    """The kernel's short-row path (a lane group a row): rows of at most
+    SHORT_VECS vectors (16 bytes each when ``vec``, else one element)."""
+    return (u * elem_size // 16 if vec else u) <= SHORT_VECS
 
 
 def round_recv(d_stack, x, *, kind: str = "max", active=None,
@@ -79,8 +95,9 @@ def round_recv(d_stack, x, *, kind: str = "max", active=None,
     (None unless ``emit_stored``); ``cov`` int32 [..., U] how many active
     slots delivered each element, per bit for ``bitor`` (None unless
     ``emit_cov``); ``cnt``/``dsz`` int32 [..., P] each slot's novel /
-    received irreducibles. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises.
+    received irreducibles. The leading axes (a batch's (config, node)
+    axes) are the kernel's rows. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
     """
     p, lead, u = d_stack.shape[0], tuple(x.shape[:-1]), x.shape[-1]
     if tuple(d_stack.shape) != (p,) + lead + (u,):

@@ -28,6 +28,7 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.buffer_fold import plain as fold_plain
 
 launches = 0            # kernel launches since the last reset (CUDA only)
+MAX_CONFIGS = 65535     # configs one launch takes (gridDim.y); more: chunks
 last_launch = None      # (Plan, blocks per config) of the last launch
 SMEM_LIMIT = 232448     # dynamic shared memory a block may use on sm_90
 REG_TALLY_P = 4         # largest P with registers per slot (csrc/round_step.cu)
@@ -158,8 +159,6 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
     nb, n, u = x.shape
     p = nbrs.shape[-1]
     k = 0 if buf is None else buf.shape[0]
-    if nb > 65535:
-        raise ValueError(f"round_step: {nb} configs; the kernel takes <= 65535")
     bo = None if buf is None else torch.empty_like(buf)
     dev = x.device
     xo = torch.empty_like(x)
@@ -181,7 +180,7 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
         pl.vec_bytes, pl.reg_tally, pl.stages, pl.threads, pl.table_bytes,
         pl.bar_bytes, pl.smem, ctypes.byref(blocks), B.stream_handle())
     B.check_launch(lib, err, "round_step")
-    launches += 1
+    launches += -(-nb // MAX_CONFIGS)           # one launch a chunk
     last_launch = (pl, blocks.value)
     return xo, bo, inbox, nodecnt[..., 0], nodecnt[..., 1], ssend, cnt, dsz
 
@@ -201,9 +200,11 @@ def round_step(delta, x, buf, active, delivered, nbrs, rev, *,
     (None without a buffer), inbox [P, B, N, U] the
     active-masked received δ-groups (None unless ``emit_inbox``),
     ``dsz_op``/``xsz`` int32 [B, N] (|⇓δ|, |⇓x'|), and int32 [B, N, P]
-    send sizes (before liveness masking), novel and received counts. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (every operand contiguous) or raises.
+    send sizes (before liveness masking), novel and received counts. Any
+    B: beyond MAX_CONFIGS configs the kernel launches in chunks. A CPU
+    tensor takes the plain
+    version; a CUDA tensor launches the kernel (every operand contiguous)
+    or raises.
     """
     nb, n, u = x.shape
     p = nbrs.shape[-1]

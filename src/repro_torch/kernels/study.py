@@ -19,9 +19,9 @@ with the C interface of the first port (``git show
 checkout, so an earlier commit unpacked by ``git archive`` can be run in
 turn with this one), the paper-size runs (fig7's GSet and GCounter and
 fig8's GMap 10% / 100% rows: 5 algorithms × tree and mesh × 3 engines, 100
-+ 20 rounds) in seconds, and mega GMap 4,194,304-key bprr and classic on
-the mesh (12 + 8 rounds, ms/round: median, min and max of 5 runs after a
-one-round warm-up) with peak memory.
++ 20 rounds) in seconds, and GMap 4,194,304-key bprr and classic on
+``mega`` and bprr on ``fused``, on the mesh (12 + 8 rounds, ms/round:
+median, min and max of 5 runs after a one-round warm-up) with peak memory.
 
 Kernel times are the median of 25 samples, each the CUDA-event time per
 call of 5 back-to-back calls behind one more call, as in ``chip_smoke.py``.
@@ -234,18 +234,19 @@ def rounds():
     topo = topology.by_name("mesh", 15, 4)
     op = W.gmap_block_op(15, KEYS, 10)
     lat = GMap(KEYS).lattice
-    for algo in ("bprr", "classic"):
-        simulate(algo, lat, topo, op, 1, 0, engine="mega")
+    for algo, engine in (("bprr", "mega"), ("classic", "mega"),
+                         ("bprr", "fused")):
+        simulate(algo, lat, topo, op, 1, 0, engine=engine)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            r = simulate(algo, lat, topo, op, 12, 8, engine="mega")
+            r = simulate(algo, lat, topo, op, 12, 8, engine=engine)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / 20)
             del r
-        emit(what=f"gmap{KEYS} mesh {algo} mega",
+        emit(what=f"gmap{KEYS} mesh {algo} {engine}",
              ms_per_round=statistics.median(times), min=min(times),
              max=max(times),
              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)

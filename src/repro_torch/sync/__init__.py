@@ -1,5 +1,6 @@
-"""Sync algorithms, engines, topologies, fault schedules, digests, Table I
-workloads and the round simulator (PyTorch)."""
+"""Sync algorithms, engines, topologies, fault schedules, digests,
+workloads, the round simulator, sweeps and the keyed object store
+(PyTorch)."""
 
 from repro_torch.sync import topology, workloads
 from repro_torch.sync.algorithms import (ALGORITHMS, RESYNC_ALGORITHMS,
@@ -11,9 +12,13 @@ from repro_torch.sync.faults import FaultSchedule
 from repro_torch.sync.simulator import (SimResult, cluster_uniform,
                                         converged, first_stable_round,
                                         simulate)
+from repro_torch.sync.store import (StoreResult, StoreSpec, resume_store,
+                                    simulate_store)
+from repro_torch.sync.sweep import SweepSpec, simulate_sweep
 
 __all__ = ["ALGORITHMS", "AlgoCarry", "DigestSpec", "ENGINES",
            "FaultSchedule", "KERNEL_ENGINES", "RESYNC_ALGORITHMS",
-           "RoundMetrics", "SimResult", "SyncAlgorithm", "cluster_uniform",
-           "converged", "first_stable_round", "simulate", "topology",
-           "workloads"]
+           "RoundMetrics", "SimResult", "StoreResult", "StoreSpec",
+           "SweepSpec", "SyncAlgorithm", "cluster_uniform", "converged",
+           "first_stable_round", "resume_store", "simulate",
+           "simulate_store", "simulate_sweep", "topology", "workloads"]

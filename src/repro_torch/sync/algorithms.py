@@ -34,6 +34,19 @@ were not all delivered *retains* its δ-buffer instead of clearing it. The
 resync modes retain nothing: requests repeat every round, so a lost message
 only delays the next handshake.
 
+Batches (sweeps and the keyed store): ``batch=B`` prepends a config axis to
+every carry leaf — states [B, N, U], slot-major buffers [K, B, N, U],
+``buf_elems`` [B, N], the digest ``aux`` [P, B, N, nB, 3] / [P, B, N] — and
+the round's metrics come back per config ([B] instead of 0-d). Configs
+share the topology but never exchange a message, so a batched round is the
+unbatched round over :meth:`Topology.tiled`: B disjoint copies of the
+network, whose B·N nodes are the rows of the flattened (config, node) axes.
+Every per-node operation is the same, so each config is bit-identical to
+its single run; only the metric sums and maxes reduce per config. The
+kernels take the (config, node) rows as one row axis (``round_step`` the
+configs as its ``nb`` axis), the JAX package's "rows" layout; the port has
+no "grid" layout.
+
 A round is one call of :meth:`SyncAlgorithm.round_step`; it never reads a
 device value on the host, so a loop of rounds only queues device work.
 """
@@ -61,18 +74,19 @@ RESYNC_ALGORITHMS = ("state_driven", "digest_driven")
 
 
 class RoundMetrics(NamedTuple):
-    tx: torch.Tensor            # elements sent this round (0-d)
+    tx: torch.Tensor            # elements sent this round (0-d; [B] batched)
     mem: torch.Tensor           # elements held (state + buffer entries)
     cpu: torch.Tensor           # element-ops processed this round (proxy)
     max_mem_node: torch.Tensor  # worst single-node memory
 
 
 class AlgoCarry(NamedTuple):
-    x: object                      # [N, U] lattice states (or a tuple)
-    buf: object                    # None | [N, U] | [P+1, N, U] | [P, N, U]
-    buf_elems: torch.Tensor        # int32 [N] buffered entry elements
-    aux: Optional[tuple] = None    # digest_driven: (int32 [P, N, nB, 3]
-                                   # remote digests, bool [P, N] have-one)
+    x: object                      # [(B,) N, U] lattice states (or a tuple)
+    buf: object                    # None | [(B,) N, U] | [P+1, (B,) N, U]
+                                   # | [P, (B,) N, U]
+    buf_elems: torch.Tensor        # int32 [(B,) N] buffered entry elements
+    aux: Optional[tuple] = None    # digest_driven: (int32 [P, (B,) N, nB, 3]
+                                   # remote digests, bool [P, (B,) N])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +102,7 @@ class SyncAlgorithm:
     metric_dtype: torch.dtype = torch.int64   # round-metric accumulators
     digest: Optional[DigestSpec] = None       # digest_driven's geometry
                                               # (None = the default spec)
+    batch: Optional[int] = None  # config axis B (None: a single run)
 
     def __post_init__(self):
         if self.name not in ALGORITHMS:
@@ -95,6 +110,8 @@ class SyncAlgorithm:
                              f"one of {ALGORITHMS}")
         if self.loo not in ("prefix", "naive"):
             raise ValueError(f"unknown loo strategy {self.loo!r}")
+        if self.batch is not None and self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
 
     @property
     def resolved_engine(self) -> str:
@@ -111,6 +128,22 @@ class SyncAlgorithm:
         universe ranks) of its leaves, which align masks per leaf, without
         memory."""
         return self.lattice.bottom("meta")
+
+    @property
+    def batched(self) -> bool:
+        return self.batch is not None
+
+    @property
+    def lead(self) -> tuple:
+        """Leading axes of a per-node array: (N,) or (B, N)."""
+        n = self.topo.num_nodes
+        return (n,) if self.batch is None else (self.batch, n)
+
+    @functools.cached_property
+    def rows(self) -> Topology:
+        """The topology one round routes over: ``topo``, or its
+        :meth:`Topology.tiled` B copies when batched."""
+        return self.topo if self.batch is None else self.topo.tiled(self.batch)
 
     @property
     def is_resync(self) -> bool:
@@ -134,53 +167,92 @@ class SyncAlgorithm:
     def extracts(self) -> bool:
         return self.name in ("rr", "bprr")
 
+    # The round's masks and tables are over the rows of :attr:`rows`
+    # (R = N, or B·N batched); ``faults`` are one round's masks over the
+    # same rows (:meth:`rows_faults`).
+
     def send_live(self, faults) -> torch.Tensor:
-        """bool [N, P]: the sends an up node puts on the wire."""
-        mask = self.topo.mask
+        """bool [R, P]: the sends an up node puts on the wire."""
+        mask = self.rows.mask
         return mask if faults is None else mask & faults.up[:, None]
 
     def recv_valid(self, faults) -> torch.Tensor:
-        """bool [N, P]: the receive slots that take a message this round
+        """bool [R, P]: the receive slots that take a message this round
         (topology padding ∧ delivery)."""
-        mask = self.topo.mask
+        mask = self.rows.mask
         return mask if faults is None else mask & faults.recv_ok
 
     def delivered(self, faults) -> Optional[torch.Tensor]:
-        """bool [N]: nodes whose sends were all delivered and which are up
+        """bool [R]: nodes whose sends were all delivered and which are up
         (their buffers clear); None without faults (every buffer clears)."""
         if faults is None:
             return None
-        return torch.all(faults.send_ok | ~self.topo.mask, dim=-1) & faults.up
+        return torch.all(faults.send_ok | ~self.rows.mask, dim=-1) & faults.up
 
-    @staticmethod
-    def msum(v: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
-        """Metric sum over every axis, in the accumulator dtype."""
-        return v.to(acc).sum(dtype=acc)
+    def rows_faults(self, faults):
+        """One round's masks over the rows: per-config [B, N, P] / [B, N]
+        masks (a sweep's stacks) or store-shared [1, N, P] / [1, N] ones
+        (broadcast to every object) flattened to [B·N, P] / [B·N]."""
+        if faults is None or self.batch is None:
+            return faults
+        b = self.batch
+        return type(faults)(*(
+            a.expand((b,) + tuple(a.shape[1:])).reshape(
+                (-1,) + tuple(a.shape[2:])) for a in faults))
+
+    def msum(self, v: torch.Tensor) -> torch.Tensor:
+        """Metric sum, in the accumulator dtype, of a tally whose LAST axis
+        is the rows: over every axis (0-d), or per config ([B])."""
+        acc = self.metric_dtype
+        if self.batch is None:
+            return v.to(acc).sum(dtype=acc)
+        v = v.reshape(tuple(v.shape[:-1]) + (self.batch,
+                                             self.topo.num_nodes))
+        dims = tuple(d for d in range(v.ndim) if d != v.ndim - 2)
+        return v.to(acc).sum(dim=dims, dtype=acc)
 
     # -- state ---------------------------------------------------------------
 
     def init(self, x0=None) -> AlgoCarry:
-        n, p = self.topo.num_nodes, self.topo.max_degree
+        p = self.topo.max_degree
+        lead = self.lead
         bot = self.lattice.bottom(self.device)
-        x = T.bcast(bot, (n,)) if x0 is None else T.to(x0, self.device)
+        x = T.bcast(bot, lead) if x0 is None else T.to(x0, self.device)
         aux = None
         if self.name == "digest_driven":
             nb = self.digest_spec.num_blocks(D.state_universe(bot))
             buf = None
             # per-slot last-received remote digests + have-one flags
-            aux = (torch.zeros((p, n, nb, D.CHANNELS), dtype=torch.int32,
-                               device=self.device),
-                   torch.zeros((p, n), dtype=torch.bool, device=self.device))
+            aux = (torch.zeros((p,) + lead + (nb, D.CHANNELS),
+                               dtype=torch.int32, device=self.device),
+                   torch.zeros((p,) + lead, dtype=torch.bool,
+                               device=self.device))
         elif self.name == "state_driven":
-            buf = T.bcast(bot, (p, n))          # destination-indexed resp
+            buf = T.bcast(bot, (p,) + lead)     # destination-indexed resp
         elif not self.has_buffer:
             buf = None
         elif self.per_origin:
-            buf = T.bcast(bot, (p + 1, n))
+            buf = T.bcast(bot, (p + 1,) + lead)
         else:
-            buf = T.bcast(bot, (n,))
+            buf = T.bcast(bot, lead)
         return AlgoCarry(x=x, buf=buf, buf_elems=torch.zeros(
-            n, dtype=torch.int32, device=self.device), aux=aux)
+            lead, dtype=torch.int32, device=self.device), aux=aux)
+
+    def _carry_rows(self, carry: AlgoCarry, merge: bool) -> AlgoCarry:
+        """A batched carry over the rows of the tiled topology (``merge``)
+        or back: the (config, node) axes of every leaf merged (views)."""
+        b = self.batch
+
+        def at(state, axis):
+            if state is None:
+                return None
+            return T.merge_axes(state, axis) if merge \
+                else T.split_axis(state, axis, b)
+
+        slot_buf = self.per_origin or self.name == "state_driven"
+        aux = None if carry.aux is None else tuple(at(a, 1) for a in carry.aux)
+        return AlgoCarry(x=at(carry.x, 0), buf=at(carry.buf, int(slot_buf)),
+                         buf_elems=at(carry.buf_elems, 0), aux=aux)
 
     # -- sends ---------------------------------------------------------------
 
@@ -224,11 +296,22 @@ class SyncAlgorithm:
 
     def round_step(self, carry: AlgoCarry, op_delta, faults=None):
         """One synchronous round; ``faults`` is one round's
-        ``faults.RoundFaults`` (None: fault-free). Returns
-        ``(carry, RoundMetrics)``."""
+        ``faults.RoundFaults`` (None: fault-free; batched, per-config
+        [B, N, P] or store-shared [1, N, P] masks). Returns
+        ``(carry, RoundMetrics)``, the metrics 0-d or per config [B]."""
+        if self.batch is None:
+            return self._round(carry, op_delta, faults)
+        carry, m = self._round(self._carry_rows(carry, True),
+                               T.merge_axes(op_delta, 0),
+                               self.rows_faults(faults))
+        return self._carry_rows(carry, False), m
+
+    def _round(self, carry: AlgoCarry, op_delta, faults):
+        """One round over the rows of :attr:`rows` (a carry whose per-node
+        axis is the R rows)."""
         if self.is_resync:
             return self._resync_round(carry, op_delta, faults)
-        lat, acc = self.lattice, self.metric_dtype
+        lat = self.lattice
         p = self.topo.max_degree
         x, buf, buf_elems, _ = carry
 
@@ -247,7 +330,7 @@ class SyncAlgorithm:
             else:
                 buf = lat.join(buf, op_delta)
             buf_elems = buf_elems + dsz
-        cpu = self.msum(dsz, acc)
+        cpu = self.msum(dsz)
 
         # (2) sends                                        [Alg 2, lines 9-12]
         if not self.has_buffer:
@@ -257,7 +340,7 @@ class SyncAlgorithm:
         else:
             d_all = self._bcast_sends(buf)
         # tx counts what an up sender puts on the wire, delivered or not
-        tx = self.msum(lat.size(d_all) * self.send_live(faults).T, acc)
+        tx = self.msum(lat.size(d_all) * self.send_live(faults).T)
         cpu = cpu + tx  # serialization cost ∝ elements sent
 
         # (3) clear buffer                                 [Alg 2, line 13]
@@ -274,8 +357,12 @@ class SyncAlgorithm:
 
         # (4) receive all messages, sequentially per slot  [Alg 2, lines 14-17]
         if self.resolved_engine == "fused":
+            # route, then let the sends go: at a store's size they are
+            # gigabytes
+            inbox = engine_mod.gather_inbox(d_all, self.rows)
+            del d_all
             x, buf, buf_elems, cpu = engine_mod.fused_receive(
-                self, x, buf, buf_elems, cpu, d_all, faults)
+                self, x, buf, buf_elems, cpu, inbox, faults)
         else:
             x, buf, buf_elems, cpu = self._receive_reference(
                 x, buf, buf_elems, cpu, d_all, faults)
@@ -315,16 +402,16 @@ class SyncAlgorithm:
         runs one ``digest_blocks``, one ``masked_extract`` and one
         ``round_recv`` launch per round, ``state_driven`` one
         ``round_recv``."""
-        lat, topo, acc = self.lattice, self.topo, self.metric_dtype
+        lat, topo = self.lattice, self.rows
         n = topo.num_nodes
         kernels = self.resolved_engine in engine_mod.KERNEL_ENGINES
         x, buf, buf_elems, aux = carry
 
         # (1) local update: δ joins in (no buffering: the op's effect rides
         # the state itself)
-        dsz = lat.size(op_delta)                                   # [N]
+        dsz = lat.size(op_delta)                                   # [R]
         x = lat.join(x, op_delta)
-        cpu = self.msum(dsz, acc)
+        cpu = self.msum(dsz)
 
         # slot-major [P, N] masks (contiguous: see _slot_where)
         send_live = self.send_live(faults).T.contiguous()
@@ -348,7 +435,7 @@ class SyncAlgorithm:
             if kernels:
                 local_dig = engine_mod.fused_digest(x, spec, kind)
             else:
-                local_dig = D.digest_state(x, spec, kind)      # [N, nB, 3]
+                local_dig = D.digest_state(x, spec, kind)      # [R, nB, 3]
             blocks = D.digest_diff(local_dig[None], dig) \
                 & dvalid[..., None]                            # [P, N, nB]
             if kernels:
@@ -361,7 +448,7 @@ class SyncAlgorithm:
             # transcript between the two current trees, capped at the flat
             # leaf layer; an undelivered exchange costs the unanswered
             # root only.
-            dig_in = local_dig[topo.nbrs.T.long()]             # [P, N, nB, 3]
+            dig_in = local_dig[topo.routes[1]]                 # [P, R, nB, 3]
             ok = topo.mask if faults is None else topo.mask & faults.send_ok
             desc = torch.clamp_max(D.descent_words(local_dig[None], dig_in),
                                    spec.words(u))              # [P, N]
@@ -369,15 +456,15 @@ class SyncAlgorithm:
 
         # (2) sends: tx counts what an up sender puts on the wire,
         # delivered or not
-        tx = self.msum(lat.size(d_all) * send_live, acc)
+        tx = self.msum(lat.size(d_all) * send_live)
         if dig_words is not None:
-            tx = tx + self.msum(dig_words, acc)
+            tx = tx + self.msum(dig_words)
         cpu = cpu + tx
 
         # (3) receive: gather and mask once (the masked inbox is also the
         # Δ-response operand), then one join fold per engine
         inbox = T.where_bot(valid, engine_mod.gather_inbox(d_all, topo))
-        cpu = cpu + self.msum(lat.size(inbox), acc)
+        cpu = cpu + self.msum(lat.size(inbox))
         x = self._join_inbox(x, inbox)
 
         if self.name == "state_driven":
@@ -387,7 +474,7 @@ class SyncAlgorithm:
             req_ok = req_recv & valid
             resp = T.where_bot(req_ok, lat.delta(self._bcast_sends(x), inbox))
             rsz = lat.size(resp)                                   # [P, N]
-            cpu = cpu + self.msum(rsz, acc)
+            cpu = cpu + self.msum(rsz)
             buf = resp
             buf_elems = rsz.sum(0, dtype=torch.int32)
         else:
@@ -399,7 +486,7 @@ class SyncAlgorithm:
             # digesting the state is one pass over U per up node
             upm = torch.ones_like(dsz) if faults is None \
                 else faults.up.to(torch.int32)
-            cpu = cpu + self.msum(upm * u, acc)
+            cpu = cpu + self.msum(upm * u)
             # memory: the stored remote digests are this mode's metadata
             buf_elems = dvalid.sum(0, dtype=torch.int32) * spec.words(u)
 
@@ -407,21 +494,25 @@ class SyncAlgorithm:
             tx, cpu, lat.size(x), buf_elems)
 
     def _metrics(self, tx, cpu, state_elems, buf_elems) -> RoundMetrics:
+        """The round's metrics from the [R] state and buffer sizes: the
+        cluster's memory and its worst node, per config when batched."""
         acc = self.metric_dtype
         node_mem = state_elems.to(acc) + buf_elems.to(acc)
-        return RoundMetrics(tx=tx, mem=node_mem.sum(dtype=acc), cpu=cpu,
-                            max_mem_node=node_mem.max())
+        if self.batch is not None:
+            node_mem = node_mem.reshape(self.lead)
+        return RoundMetrics(tx=tx, mem=node_mem.sum(-1, dtype=acc), cpu=cpu,
+                            max_mem_node=node_mem.amax(-1))
 
     def _receive_reference(self, x, buf, buf_elems, cpu, d_all, faults=None):
         """Reference receive: the sequential per-slot loop."""
-        lat, topo, acc = self.lattice, self.topo, self.metric_dtype
+        lat, topo = self.lattice, self.rows
         recv_valid = self.recv_valid(faults)
         for q in range(topo.max_degree):
             valid = recv_valid[:, q]
             d = T.where_bot(valid, T.gather(d_all, topo.rev[:, q].long(),
                                             topo.nbrs[:, q].long()))
             if self.name == "state":
-                cpu = cpu + self.msum(lat.size(d), acc)
+                cpu = cpu + self.msum(lat.size(d))
                 x = lat.join(x, d)
                 continue
             if self.extracts:
@@ -431,7 +522,7 @@ class SyncAlgorithm:
                 stored = d                                     # whole group
                 keep = torch.logical_not(lat.leq(d, x)) & valid  # inflation
             ssz = lat.size(stored) * keep
-            cpu = cpu + self.msum(lat.size(d), acc) + self.msum(ssz, acc)
+            cpu = cpu + self.msum(lat.size(d)) + self.msum(ssz)
             x = lat.join(x, d)
             if self.per_origin:
                 cur = T.slot(buf, q)

@@ -31,6 +31,13 @@ Fault semantics (every engine honours them identically):
 
 With an all-ok schedule every mask is identity, so results are bit-equal to
 the schedule-free simulator.
+
+Batches: a sweep gives each config its own schedule, stacked by
+:func:`stacked_views` into [T, B, N, P] / [T, B, N] masks; a keyed store
+shares one schedule across its objects (a partition cuts the whole
+store), viewed by :func:`shared_views` with a singleton object axis,
+[T, 1, N, P] / [T, 1, N], that broadcasts to every object. Both are
+uploaded once per run, as a single run's views are.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from repro_torch.sync.topology import Topology
 
 
 class RoundFaults(NamedTuple):
-    """One round's fault masks (device tensors)."""
+    """One round's fault masks (device tensors); a batch's carry a leading
+    [B] (per config) or [1] (store-shared) axis."""
 
     recv_ok: torch.Tensor   # bool [N, P] — message into slot (n, q) delivered
     send_ok: torch.Tensor   # bool [N, P] — send on (n, q)'s edge delivered
@@ -199,11 +207,11 @@ class FaultSchedule:
 
     # -- the run's masks -----------------------------------------------------
 
-    def views(self, total_rounds: int, device="cpu") -> FaultViews:
+    def host_views(self, total_rounds: int) -> tuple:
         """Fold node liveness into per-edge delivery and derive the sender
         view; pad with all-ok up to ``total_rounds`` (rounds past the
-        schedule are fault-free — the "eventually connected" tail). The
-        three tables are uploaded to ``device`` once."""
+        schedule are fault-free — the "eventually connected" tail). Returns
+        the numpy ``(recv_ok, send_ok, up)`` tables."""
         s = self._padded(total_rounds)
         nbrs = self.topo.nbrs.cpu().numpy()
         rev = self.topo.rev.cpu().numpy()
@@ -211,8 +219,11 @@ class FaultSchedule:
         up = s.up[:total_rounds]
         recv_ok = link_ok & up[:, nbrs] & up[:, :, None]
         send_ok = recv_ok[:, nbrs, rev]                    # sender's view
-        return FaultViews(*(torch.from_numpy(np.ascontiguousarray(a))
-                            .to(device) for a in (recv_ok, send_ok, up)))
+        return recv_ok, send_ok, up
+
+    def views(self, total_rounds: int, device="cpu") -> FaultViews:
+        """:meth:`host_views` uploaded to ``device`` once."""
+        return _upload(self.host_views(total_rounds), device)
 
     # -- host-side queries ---------------------------------------------------
 
@@ -234,3 +245,35 @@ class FaultSchedule:
         if not (self.up[t, src] and self.up[t, dst]):
             return False
         return bool(self.link_ok[t, dst, slots[0]])
+
+
+def _upload(tables, device) -> FaultViews:
+    return FaultViews(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                        for a in tables))
+
+
+def stacked_views(schedules, topo: Topology, total_rounds: int,
+                  device="cpu") -> FaultViews:
+    """A sweep's per-config schedules (None: fault-free) as time-major
+    stacked masks ``recv_ok``/``send_ok`` [T, B, N, P] and ``up``
+    [T, B, N], uploaded to ``device`` once. Every schedule must be bound
+    to ``topo``."""
+    per_cell = []
+    for b, sched in enumerate(schedules):
+        if sched is None:
+            sched = FaultSchedule.none(topo, total_rounds)
+        elif not sched.same_topology(topo):
+            raise ValueError(f"faults[{b}] was built for topology "
+                             f"{sched.topo.name!r}, not {topo.name!r}")
+        per_cell.append(sched.host_views(total_rounds))
+    return _upload([np.stack([v[f] for v in per_cell], axis=1)
+                    for f in range(3)], device)
+
+
+def shared_views(schedule: FaultSchedule, total_rounds: int,
+                 device="cpu") -> FaultViews:
+    """One schedule for a whole store: its masks with a singleton object
+    axis, [T, 1, N, P] / [T, 1, N], which broadcast to every object
+    (O(T·N·P) memory, not O(T·B·N·P))."""
+    return _upload([a[:, None] for a in schedule.host_views(total_rounds)],
+                   device)

@@ -12,6 +12,7 @@ package builds; ``on(device)`` moves them to where a simulation runs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +32,34 @@ class Topology:
         return dataclasses.replace(self, nbrs=self.nbrs.to(device),
                                    mask=self.mask.to(device),
                                    rev=self.rev.to(device))
+
+    @functools.cached_property
+    def routes(self):
+        """Slot-major int64 gather indices ``(rev.T, nbrs.T)`` [P, N]:
+        inbox[q, n] = sends[rev[n, q], nbrs[n, q]]. Built once per
+        topology (a store's tiled tables hold millions of rows)."""
+        return (self.rev.T.long().contiguous(),
+                self.nbrs.T.long().contiguous())
+
+    def tiled(self, copies: int) -> "Topology":
+        """``copies`` disjoint copies of this topology as one topology of
+        copies·N nodes: node b·N + i is node i of copy b, its neighbours
+        are the copies of its neighbours in copy b, and the slots and
+        their reverse slots are unchanged. A sweep's configs (or a store's
+        objects) share the network but never exchange messages, so one
+        round over the tiled topology is every copy's round side by
+        side."""
+        n = self.num_nodes
+        off = (torch.arange(copies, dtype=torch.int32,
+                            device=self.nbrs.device) * n)[:, None, None]
+
+        def tile(a):
+            return a.expand((copies,) + tuple(a.shape)).reshape(
+                copies * n, self.max_degree)
+
+        return Topology(f"{self.name}x{copies}", copies * n, self.max_degree,
+                        (self.nbrs[None] + off).reshape(copies * n, -1),
+                        tile(self.mask), tile(self.rev))
 
 
 def from_tables(name: str, nbrs, mask, rev) -> Topology:

@@ -96,10 +96,28 @@ def zeros_like(state):
 
 
 def to(state, device):
-    return tree_map(lambda a: a.to(device), state)
+    """A state (tensors or numpy arrays) on ``device``, contiguous."""
+    return tree_map(lambda a: torch.as_tensor(a).to(device).contiguous(),
+                    state)
 
 
 def cast_like(state, like):
     """``state`` with each leaf cast to the dtype of the matching leaf of
     ``like``."""
     return tree_map(lambda a, b: a.to(b.dtype), state, like)
+
+
+def merge_axes(state, axis: int):
+    """Every leaf with its axes ``axis`` and ``axis + 1`` merged into one
+    (a view of a contiguous leaf): the [B, N] (config, node) axes of a
+    batched state become the B·N rows of the tiled topology."""
+    return tree_map(lambda a: a.reshape(
+        tuple(a.shape[:axis]) + (-1,) + tuple(a.shape[axis + 2:])), state)
+
+
+def split_axis(state, axis: int, first: int):
+    """Inverse of :func:`merge_axes`: axis ``axis`` of every leaf split
+    into (``first``, the rest)."""
+    return tree_map(lambda a: a.reshape(
+        tuple(a.shape[:axis]) + (first, -1) + tuple(a.shape[axis + 1:])),
+        state)

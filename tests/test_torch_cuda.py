@@ -426,3 +426,185 @@ def test_lww_simulate_on_the_card_matches_the_cpu(sm90, algo):
                                           getattr(want, nm))
         for g, w in zip(got.final_x, want.final_x):
             assert torch.equal(g.cpu(), w)
+
+
+# -- the batch axes and the store's shapes ---------------------------------------
+
+# Rows of the short-row path (at most 32 vectors: U = 32 / 64 int32 in
+# 16-byte vectors, 24 bools and 5 int32 one element a lane, 3 words) and a
+# long row (200 int32), each over more rows than a grid dimension holds.
+RECV_ROWS = [("max_i32", 32), ("max_i32", 64), ("max_i32", 5),
+             ("max_bool", 32), ("max_bool", 24), ("bitor_u32", 3),
+             ("max_i32", 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name,u", RECV_ROWS)
+def test_round_recv_beyond_65535_rows(sm90, kind_name, u, rng):
+    p, m = 4, 70_001
+    elem = 1 if kind_name == "max_bool" else 4
+    assert krecv.short_rows(u, elem, (u * elem) % 16 == 0) == (u != 200)
+    d = both(rand_state(rng, kind_name, p, m, u), sm90)
+    x = both(rand_state(rng, kind_name, m, u), sm90)
+    act = both(rng.integers(0, 2, size=(m, p)).astype(np.int32), sm90)
+    kw = dict(kind=KINDS[kind_name][0], emit_stored=True, emit_cov=True)
+    n0 = krecv.launches
+    got = ops.round_recv(d[1], x[1], active=act[1], **kw)
+    torch.cuda.synchronize()
+    assert krecv.launches == n0 + 1
+    want = ops.round_recv(d[0], x[0], active=act[0], **kw)
+    for nm, g, w in zip(("x'", "stored", "cov", "cnt", "dsz"), got, want):
+        assert_equal(g, w, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name,u", RECV_ROWS)
+def test_round_recv_grid_strides(sm90, kind_name, u, rng, monkeypatch):
+    """With the grid capped at 3 blocks, every short-row warp and every
+    long-row gridDim.y row walks its grid-stride loop many times (the
+    store's shapes need 2^20 blocks before the cap bites), equal to the
+    plain version."""
+    monkeypatch.setattr(krecv, "MAX_BLOCKS", 3)
+    p, m = 4, 1_001
+    d = both(rand_state(rng, kind_name, p, m, u), sm90)
+    x = both(rand_state(rng, kind_name, m, u), sm90)
+    act = both(rng.integers(0, 2, size=(m, p)).astype(np.int32), sm90)
+    kw = dict(kind=KINDS[kind_name][0], emit_stored=True, emit_cov=True)
+    got = ops.round_recv(d[1], x[1], active=act[1], **kw)
+    want = ops.round_recv(d[0], x[0], active=act[0], **kw)
+    for nm, g, w in zip(("x'", "stored", "cov", "cnt", "dsz"), got, want):
+        assert_equal(g, w, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["bprr", "classic", "state"])
+@pytest.mark.parametrize("u", [32, 64])
+def test_round_step_beyond_65535_configs(sm90, flavor, u, rng):
+    """More configs than a grid dimension holds: the launch is cut into
+    chunks of 65,535 (two launches counted), equal to the plain version
+    on the card."""
+    topo = topology.partial_mesh(16, 4).on(sm90)
+    n, p, b = 16, 4, 65_537 if u == 32 else 3_001
+    k, per_origin, extracts = FLAVORS[flavor]
+    k = p + 1 if k == "P+1" else k
+    g = torch.Generator(device=sm90).manual_seed(u)
+
+    def ints(*shape):
+        return torch.randint(0, 50, shape, generator=g, device=sm90,
+                             dtype=torch.int32)
+
+    delta, x = ints(b, n, u), ints(b, n, u)
+    buf = ints(k, b, n, u) if k else None
+    active = (torch.randint(0, 2, (b, n, p), generator=g, device=sm90,
+                            dtype=torch.int32) * topo.mask).to(torch.int32)
+    dlv = torch.randint(0, 2, (b, n), generator=g, device=sm90,
+                        dtype=torch.int32) if k else None
+    kw = dict(kind="max", per_origin=per_origin, extracts=extracts,
+              emit_inbox=not extracts and k > 0)
+    n0 = kstep.launches
+    got = ops.round_step(delta, x, buf, active, dlv, topo.nbrs, topo.rev,
+                         **kw)
+    torch.cuda.synchronize()
+    assert kstep.launches == n0 + -(-b // kstep.MAX_CONFIGS)
+    want = kstep.plain(delta, x, buf, active, dlv, topo.nbrs, topo.rev, **kw)
+    for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz", "ssend",
+                         "cnt", "dsz"), got, want):
+        assert (a is None) == (w is None), nm
+        if a is not None:
+            assert torch.equal(a, w), nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+def test_path_kernels_take_batch_axes(sm90, kind_name, rng):
+    """The five path kernels on a batch's [B, N, U] (and slot-major
+    [K, B, N, U]) operands, against their plain versions on the CPU."""
+    b, n, u, p, be = 300, 16, 64, 4, 8
+    kind = KINDS[kind_name][0]
+    x = both(rand_state(rng, kind_name, b, n, u), sm90)
+    buf = both(rand_state(rng, kind_name, p + 1, b, n, u), sm90)
+    d = both(rand_state(rng, kind_name, p, b, n, u), sm90)
+    act = both(rng.integers(0, 2, size=(b, n, p)).astype(np.int32), sm90)
+    masks = both(rng.integers(0, 2, size=(p, b, n, u // be)).astype(bool),
+                 sm90)
+    got = ops.round_recv(d[1], x[1], kind=kind, active=act[1])
+    want = ops.round_recv(d[0], x[0], kind=kind, active=act[0])
+    for nm, g, w in zip(("x'", "stored", "cov", "cnt", "dsz"), got, want):
+        assert_equal(g, w, f"round_recv {nm}")
+    assert_equal(ops.buffer_fold(buf[1], kind=kind),
+                 ops.buffer_fold(buf[0], kind=kind), "buffer_fold")
+    assert_equal(ops.digest_blocks(x[1], block_elems=be, kind=kind),
+                 ops.digest_blocks(x[0], block_elems=be, kind=kind),
+                 "digest_blocks")
+    if kind == "max":
+        assert_equal(ops.masked_extract(x[1], masks[1], block_elems=be),
+                     ops.masked_extract(x[0], masks[0], block_elems=be),
+                     "masked_extract")
+    topo = topology.partial_mesh(n, 4)
+    dlv = both(rng.integers(0, 2, size=(b, n)).astype(np.int32), sm90)
+    got = ops.round_step(d[1][0], x[1], buf[1], act[1], dlv[1],
+                         topo.nbrs.to(sm90), topo.rev.to(sm90), kind=kind,
+                         per_origin=True, extracts=True)
+    want = ops.round_step(d[0][0], x[0], buf[0], act[0], dlv[0], topo.nbrs,
+                          topo.rev, kind=kind, per_origin=True, extracts=True)
+    for nm, g, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz", "ssend",
+                         "cnt", "dsz"), got, want):
+        assert_equal(g, w, f"round_step {nm}")
+
+
+def retwis_store(objects=40, nodes=16, slots=32, rounds=6, ops=6):
+    from repro_torch.core import MapLattice
+    from repro_torch.core import value_lattices as vl
+    from repro_torch.sync import StoreSpec
+
+    wl = workloads.retwis(objects, nodes, rounds, ops, 1.0, seed=0)
+    lat = MapLattice(slots, vl.max_int(), "retwis").build()
+    spec = StoreSpec(objects=objects,
+                     op_fn=workloads.versioned_slot_op(wl.update_counts(),
+                                                       slots),
+                     weights=workloads.retwis_weights(objects))
+    return lat, topology.partial_mesh(nodes, 4), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["classic", "bprr", "state_driven",
+                                  "digest_driven"])
+def test_store_on_the_card_matches_the_cpu(sm90, algo):
+    from repro_torch.sync import simulate_store
+
+    lat, topo, spec = retwis_store()
+    want = simulate_store(algo, lat, topo, spec, 6, 4, device="cpu",
+                          digest=DigestSpec(8))
+    for engine in ENGINES:
+        got = simulate_store(algo, lat, topo, spec, 6, 4, engine=engine,
+                             digest=DigestSpec(8))
+        for nm in ("tx", "mem", "cpu", "max_mem_node"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+        np.testing.assert_array_equal(got.final_state_bytes,
+                                      want.final_state_bytes)
+        assert torch.equal(got.final_x.cpu(), want.final_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["classic", "bprr", "digest_driven"])
+def test_sweep_on_the_card_matches_the_cpu(sm90, algo):
+    from repro_torch.sync import SweepSpec, simulate_sweep
+
+    topo = topology.partial_mesh(15, 4)
+    n, events = 15, 6
+    scheds = [None, FaultSchedule.bernoulli(topo, events, 0.2, seed=3),
+              FaultSchedule.partition(topo, events, 1, 4,
+                                      (np.arange(n) >= 7).astype(np.int32))]
+    spec = SweepSpec(batch=3, op_fn=workloads.gset_unique_sweep_op(
+        n, events, (0, 3, 11)), faults=scheds)
+    lat = GSet(n * events).lattice
+    want = simulate_sweep(algo, lat, topo, spec, events, 6, device="cpu",
+                          digest=DigestSpec(8))
+    for engine in ENGINES:
+        got = simulate_sweep(algo, lat, topo, spec, events, 6, engine=engine,
+                             digest=DigestSpec(8))
+        for nm in ("tx", "mem", "cpu", "max_mem_node", "uniform"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+        assert torch.equal(got.final_x.cpu(), want.final_x)

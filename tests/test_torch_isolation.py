@@ -4,7 +4,7 @@ in neither ``jax`` nor the JAX package ``repro``, no source file of theirs
 imports either, and the entry points run on the card unless told otherwise —
 without a card, ``simulate`` with no ``device=`` raises instead of falling
 back to the CPU, for the δ-family, a faulted resync run and an LWWMap run
-alike."""
+alike, and so do ``simulate_sweep`` and ``simulate_store``."""
 
 import ast
 import subprocess
@@ -93,6 +93,20 @@ def test_entry_points_default_to_the_card():
         "    print('RAISED', e)\n"
         "simulate('bprr', lww, topology.ring(3), lambda x, t: x, 2,\n"
         "         engine='mega', device='cpu')\n"
+        "from repro_torch.sync import (StoreSpec, SweepSpec, simulate_store,\n"
+        "                              simulate_sweep)\n"
+        "g = GCounter(3).lattice\n"
+        "for run in (lambda **k: simulate_sweep(\n"
+        "                'bprr', g, topology.ring(3), SweepSpec(\n"
+        "                    2, workloads.gcounter_sweep_op(3)), 2, **k),\n"
+        "            lambda **k: simulate_store(\n"
+        "                'bprr', g, topology.ring(3), StoreSpec(\n"
+        "                    2, workloads.gcounter_sweep_op(3)), 2, **k)):\n"
+        "    try:\n"
+        "        run(engine='mega')\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', e)\n"
+        "    run(engine='mega', device='cpu')\n"
         "a = torch.arange(8, dtype=torch.int32)\n"
         "ops.join(a, a); ops.delta_extract(a, a)\n"
         "ops.lex_join_delta((a, a), (a, a))\n"
@@ -100,7 +114,7 @@ def test_entry_points_default_to_the_card():
         "      sorted(kernels.KERNELS))\n")
     out = run_python(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED no CUDA device") == 3, out.stdout
+    assert out.stdout.count("RAISED no CUDA device") == 5, out.stdout
     # the CPU runs and calls took the plain versions: no kernel was launched
     assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
         "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \

@@ -355,3 +355,45 @@ def test_cuda_kernels_vs_jax(sm90, kind_name, rng):
     buf = rand_state(rng, kind_name, 5, N, U)
     assert_same(ops.buffer_fold(convert.to_torch(buf, sm90), kind=kind),
                 jref.buffer_fold(jnp.asarray(buf), kind=kind), words, "fold")
+
+
+def test_batch_layouts_on_the_cpu():
+    """Every path kernel's wrapper takes a batch's leading (config, node)
+    axes as rows (the port's one batch layout) — one result, the unbatched
+    one row by row; ``round_recv``'s short-row path is the rows of at most
+    32 vectors."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import round_recv as kr
+    from repro_torch.sync import topology
+
+    g = torch.Generator().manual_seed(3)
+    b, n, u, p = 3, 6, 16, 4
+    x = torch.randint(0, 5, (b, n, u), generator=g, dtype=torch.int32)
+    d = torch.randint(0, 5, (p, b, n, u), generator=g, dtype=torch.int32)
+    buf = torch.randint(0, 5, (p + 1, b, n, u), generator=g,
+                        dtype=torch.int32)
+    masks = torch.randint(0, 2, (p, b, n, 2), generator=g).bool()
+    flat = ops.round_recv(d.reshape(p, b * n, u), x.reshape(b * n, u))
+    got = ops.round_recv(d, x)
+    for a, w in zip(got, flat):
+        assert (a is None) == (w is None)
+        assert w is None or torch.equal(a.reshape(w.shape), w)
+    assert torch.equal(ops.buffer_fold(buf).reshape(p, b * n, u),
+                       ops.buffer_fold(buf.reshape(p + 1, b * n, u)))
+    assert torch.equal(ops.digest_blocks(x, block_elems=8)[1],
+                       ops.digest_blocks(x[1], block_elems=8))
+    assert torch.equal(ops.masked_extract(x, masks, block_elems=8)[:, 2],
+                       ops.masked_extract(x[2], masks[:, 2], block_elems=8))
+    topo = topology.partial_mesh(n, 4)
+    act = topo.mask.to(torch.int32).expand(b, n, p).contiguous()
+    dlv = torch.ones((b, n), dtype=torch.int32)
+    got = ops.round_step(d[0], x, buf, act, dlv, topo.nbrs, topo.rev,
+                         per_origin=True, extracts=True)
+    one = ops.round_step(d[0][1:2], x[1:2], buf[:, 1:2], act[1:2],
+                         dlv[1:2], topo.nbrs, topo.rev, per_origin=True,
+                         extracts=True)
+    assert torch.equal(got[0][1:2], one[0])
+    assert torch.equal(got[1][:, 1:2], one[1])
+    assert kr.short_rows(32, 4, True) and kr.short_rows(128, 4, True)
+    assert not kr.short_rows(132, 4, True) and kr.short_rows(32, 4, False)
+    assert not kr.short_rows(33, 4, False) and kr.short_rows(512, 1, True)

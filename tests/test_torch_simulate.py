@@ -148,3 +148,45 @@ def test_convergence_tracking_and_overflow_check():
     with pytest.raises(OverflowError):
         collect_result(AlgoCarry(torch.zeros(2, 3), None, torch.zeros(2)),
                        [wrapped], [], False)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_x0_as_numpy_or_a_strided_view(engine, monkeypatch):
+    """``simulate(x0=)`` takes what the JAX package's takes: a numpy array
+    runs (it raised AttributeError), and a strided view of a tensor (here
+    a broadcast row) reaches the kernels contiguous — the CUDA kernels
+    refuse anything else — with the JAX package's result."""
+    from repro_torch.kernels import ops
+
+    def guard(fn):
+        def wrapped(*args, **kw):
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    assert a.is_contiguous(), fn.__name__
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("round_recv", "round_step", "buffer_fold"):
+        monkeypatch.setattr(ops, name, guard(getattr(ops, name)))
+    n, events = 15, 4
+    row = np.zeros(n * events, bool)
+    row[::7] = True
+    x0 = np.broadcast_to(row, (n, n * events)).copy()
+    x0[0] = False                                  # a joiner at node 0
+    want = jax_simulate("bprr", jtypes.GSet(n * events).lattice,
+                        jtopo.partial_mesh(n, 4),
+                        jW.gset_unique_op(n, events), events, 3,
+                        x0=jnp.asarray(x0), wide_metrics=False)
+    strided = torch.from_numpy(row).expand(n, n * events)
+    for start in (x0, strided):
+        got = simulate("bprr", ttypes.GSet(n * events).lattice,
+                       ttopo.partial_mesh(n, 4), tW.gset_unique_op(n, events),
+                       events, 3, x0=start, engine=engine, device="cpu")
+        if start is x0:
+            for nm in ("tx", "mem", "cpu", "max_mem_node"):
+                np.testing.assert_array_equal(getattr(got, nm),
+                                              np.asarray(getattr(want, nm)))
+            np.testing.assert_array_equal(got.final_x.numpy(),
+                                          np.asarray(want.final_x))
+        else:
+            assert converged(ttypes.GSet(n * events).lattice, got.final_x)
