@@ -74,14 +74,31 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    at 65,536 keys under 10% loss and in a digest_driven join, each run on
    the card equal to the CPU run; ``repro_torch.quickstart`` on the card
    equal to the CPU;
-8. profile: ``torch.profiler`` over three GMap rounds per kernel engine
-   (bprr), three LWWMap rounds (reference) and three digest_driven rounds
+8. observability and the Scuttlebutt baseline, launch counters zeroed
+   again (each part's seconds printed):
+   (a) ``fig_telemetry.json``'s 18 cells value for value on three engines;
+   (b) ``benchmarks/fig_provenance.py``'s scenarios on three engines and
+   the CPU, all equal, attribution exhaustive, bprr back-propagating
+   nothing, the two anomalies classified; (c) GMap 4,194,304 keys bprr /
+   classic with telemetry and provenance on three engines: the run
+   unchanged, the channels 27,962 × the GCounter(15) run's, mega timed
+   off / telemetry / both; (d) Scuttlebutt's fig7 rows, fig10 column and
+   fig9 entries, and its GMap codec at 4,194,304 keys; (e) phase 6's
+   sweeps and the committed Retwis store with telemetry and provenance,
+   every cell and object equal to its single run, and Retwis at the paper
+   setting with telemetry and ``object_metrics=False``, timed against the
+   run without, checkpointed and resumed; its trace is written beside the
+   JSON log (``obs_trace.json``, ``obs_trace.jsonl``);
+9. profile: ``torch.profiler`` over three GMap rounds per kernel engine
+   (bprr; on ``mega`` also with telemetry and provenance), three LWWMap
+   rounds (reference) and three digest_driven rounds
    on ``fused`` — device time by kernel and the device's busy share; a
    profiler failure fails the run.
 
-Phases 4–5 are the sync engines' main path, phase 6 its batched form and
-phase 7 the lex-pair one (the elementwise kernels' users): the launch
-counters are zeroed before and read after each. Prints
+Phases 4–5 are the sync engines' main path, phase 6 its batched form,
+phase 7 the lex-pair one (the elementwise kernels' users) and phase 8 the
+observability path: the launch counters are zeroed before and read after
+each. Prints
 per-phase seconds, one ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``; exits non-zero, without that line, if anything fails or no card
@@ -1952,12 +1969,14 @@ def profile_rounds(check, tag, run):
 
 def profile_phase(check, log):
     """Where a round's time goes: 3 active GMap rounds (4,194,304 keys,
-    mesh, bprr) per kernel engine, 3 LWWMap rounds of phase 7 (reference),
+    mesh, bprr) per kernel engine and on ``mega`` with telemetry and
+    provenance, 3 LWWMap rounds of phase 7 (reference),
     and 3 digest_driven rounds of the GMap join (a) on ``fused``. Informs
     PERF.md."""
     import torch
 
     from repro_torch.core import GMap, LWWMap
+    from repro_torch.obs import ProvenanceSpec, TelemetrySpec
     from repro_torch.sync import DigestSpec, simulate, topology
     from repro_torch.sync import workloads as W
 
@@ -1969,6 +1988,11 @@ def profile_phase(check, log):
         out[engine] = profile_rounds(
             check, f"gmap mesh bprr {engine}",
             lambda e=engine: simulate("bprr", lat, topo, op, 3, 0, engine=e))
+    out["mega_observability"] = profile_rounds(
+        check, "gmap mesh bprr mega telemetry + provenance",
+        lambda: simulate("bprr", lat, topo, op, 3, 0, engine="mega",
+                         telemetry=TelemetrySpec(),
+                         provenance=ProvenanceSpec()))
     blocks = torch.as_tensor(W.gmap_key_blocks(15, SCALE_KEYS, 10),
                              device="cuda")
     out["lww_reference"] = profile_rounds(
@@ -1983,6 +2007,581 @@ def profile_phase(check, log):
         lambda: simulate("digest_driven", lat, topo, no_op, 0, 3, x0=x0,
                          engine="fused", digest=DigestSpec(DIGEST_BLOCK)))
     log["profile"] = out
+
+
+# -- phase 8: observability and the Scuttlebutt baseline ------------------------
+
+OBS_JOIN_U, OBS_JOIN_ROUNDS = 1024, 14      # fig_telemetry / fig_provenance
+OBS_TIMED_RUNS = 5                          # timed runs at 4,194,304 keys
+
+
+def obs_fields(r):
+    """A run's telemetry channels (host arrays) and provenance channels
+    and matrices (the matrices on the run's device)."""
+    out = {}
+    if r.telemetry is not None:
+        out.update({f"tele.{f}": getattr(r.telemetry, f)
+                    for f in r.telemetry._fields[:6]})
+    if r.provenance is not None:
+        out.update({f"prov.{f}": getattr(r.provenance, f)
+                    for f in r.provenance._fields[:10]})
+    return out
+
+
+def same_obs(a, b) -> bool:
+    """Equal runs (metrics, convergence, final states) with equal
+    observability channels and matrices (tensors compared on the first
+    run's device)."""
+    import numpy as np
+    import torch
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y.to(x.device))
+        return np.array_equal(x, y)
+
+    fa, fb = obs_fields(a), obs_fields(b)
+    return same_run(a, b) and fa.keys() == fb.keys() and all(
+        equal(fa[k], fb[k]) for k in fa)
+
+
+def fig_telemetry_row(r):
+    """One row of ``benchmarks/fig_telemetry.py``'s table from a port run
+    (its ``_row`` without the wall time)."""
+    import numpy as np
+
+    t = r.telemetry
+    return {"tx": r.total_tx,
+            "recv_elems": int(t.recv_elems.sum()),
+            "novel_elems": int(t.novel_elems.sum()),
+            "redundancy": round(t.total_redundancy(), 4),
+            "redundancy_over_time": [
+                None if np.isnan(v) else round(float(v), 4)
+                for v in t.redundancy_over_time()],
+            "peak_buf_elems": int(t.buf_elems.sum(axis=-1).max()),
+            "max_stale_rounds": int(t.stale_rounds.max()),
+            "max_ack_lag": int(t.ack_lag.max()),
+            "final_div_gap": int(t.div_gap[-1].sum())}
+
+
+def obs_engines(check, launches, tag, algo, rounds, fn, cpu=False):
+    """``fn(engine, device)`` on the three engines on the card (launches
+    checked), all equal with their observability; with ``cpu`` also the
+    reference engine on the CPU, equal to them. Returns the card runs by
+    engine."""
+    from repro_torch.sync import ENGINES
+
+    runs = {e: launches.run(f"{tag} {e}", e, algo, rounds,
+                            lambda e=e: fn(e, "cuda")) for e in ENGINES}
+    for e in ("fused", "mega"):
+        check(same_obs(runs["reference"], runs[e]),
+              f"{tag}: {e} differs from reference")
+    if cpu:
+        check(same_obs(runs["reference"], fn("reference", "cpu")),
+              f"{tag}: the card differs from the CPU")
+    return runs
+
+
+def obs_fig_telemetry(check, launches, trace):
+    """(a) ``benchmarks/results/fig_telemetry.json``'s 18 cells, value for
+    value, on the three engines: the fig7 GSet workload on tree and mesh,
+    the mesh at 10% loss, and the 25% join of state / state_driven /
+    digest_driven, rebuilt here as ``benchmarks/fig_telemetry.py`` builds
+    them."""
+    import torch
+
+    from repro_torch.core import GSet
+    from repro_torch.obs import TelemetrySpec
+    from repro_torch.sync import DigestSpec, FaultSchedule, simulate, topology
+    from repro_torch.sync import workloads as W
+
+    fig = json.loads((REPO / "benchmarks" / "results" /
+                      "fig_telemetry.json").read_text())
+    n, events, quiet = fig["nodes"], fig["events"], fig["quiet"]
+    lat, op = GSet(n * events).lattice, W.gset_unique_op(n, events)
+    mesh = topology.partial_mesh(n, 4)
+    scen = [("tree", topology.tree(n), None, fig["transmission"]["tree"]),
+            ("mesh", mesh, None, fig["transmission"]["mesh"]),
+            ("loss", mesh, FaultSchedule.bernoulli(
+                mesh, events + quiet // 4, fig["loss_rate"], seed=7),
+             fig["loss"])]
+    cells = 0
+    for name, topo, faults, rows in scen:
+        for algo, row in rows.items():
+            want = {k: v for k, v in row.items() if k != "wall_s"}
+            runs = obs_engines(
+                check, launches, f"fig_telemetry {name} {algo}", algo,
+                events + quiet,
+                lambda e, d: simulate(algo, lat, topo, op, events, quiet,
+                                      faults=faults, engine=e,
+                                      telemetry=TelemetrySpec(), device=d))
+            for e, r in runs.items():
+                got = fig_telemetry_row(r)
+                check(got == want, f"fig_telemetry {name} {algo} {e}: "
+                                   f"{got} vs {want}")
+            if name == "loss" and algo in ("classic", "bprr"):
+                trace.add_round_counters(runs["mega"].telemetry,
+                                         prefix=f"loss/{algo}/")
+            cells += 1
+    x0 = join_x0(n, OBS_JOIN_U, fig["join_ratio"])
+    for algo, row in fig["join"].items():
+        want = {k: v for k, v in row.items() if k != "wall_s"}
+        runs = obs_engines(
+            check, launches, f"fig_telemetry join {algo}", algo,
+            OBS_JOIN_ROUNDS,
+            lambda e, d: simulate(algo, GSet(OBS_JOIN_U).lattice, mesh,
+                                  no_op, 0, OBS_JOIN_ROUNDS,
+                                  x0=x0, digest=DigestSpec(64),
+                                  track_convergence=True, engine=e,
+                                  telemetry=TelemetrySpec(), device=d))
+        for e, r in runs.items():
+            got = fig_telemetry_row(r)
+            check(got == want, f"fig_telemetry join {algo} {e}: {got} vs "
+                               f"{want}")
+        cells += 1
+    torch.cuda.synchronize()
+    return {"cells": cells}
+
+
+def obs_fig_provenance(check, launches, trace):
+    """(b) ``benchmarks/fig_provenance.py``'s scenarios (no committed
+    result): the fig7 GSet workload on tree and mesh and the mesh at 10%
+    loss with telemetry and provenance, and the two anomaly runs, each on
+    three engines and on the CPU, all equal; waste_bp + waste_cp == recv
+    − novel for every (round, node); bprr back-propagates nothing; the
+    joining replica under bprr is non-convergence, the partition under
+    state fault stalls, and state_driven's join is not flagged."""
+    import numpy as np
+
+    from repro_torch.core import GSet
+    from repro_torch.obs import (FAULT_STALL, NON_CONVERGENCE,
+                                 ProvenanceSpec, TelemetrySpec,
+                                 detect_stalls)
+    from repro_torch.sync import FaultSchedule, simulate, topology
+    from repro_torch.sync import workloads as W
+
+    n, events, quiet = 15, 40, 40
+    lat, op = GSet(n * events).lattice, W.gset_unique_op(n, events)
+    mesh = topology.partial_mesh(n, 4)
+    scen = [("tree", topology.tree(n), None), ("mesh", mesh, None),
+            ("loss", mesh, FaultSchedule.bernoulli(mesh, events + quiet,
+                                                   0.10, seed=7))]
+    shares = {}
+    for name, topo, faults in scen:
+        for algo in ("state", "classic", "bp", "rr", "bprr"):
+            tag = f"fig_provenance {name} {algo}"
+            runs = obs_engines(
+                check, launches, tag, algo, events + quiet,
+                lambda e, d: simulate(algo, lat, topo, op, events, quiet,
+                                      faults=faults, engine=e,
+                                      telemetry=TelemetrySpec(),
+                                      provenance=ProvenanceSpec(), device=d),
+                cpu=True)
+            r = runs["mega"]
+            p, t = r.provenance, r.telemetry
+            check(np.array_equal(p.waste_bp.astype(np.int64) + p.waste_cp,
+                                 t.redundant_elems)
+                  and p.attributed_fraction(t) == 1.0,
+                  f"{tag}: attribution is not exhaustive")
+            w = p.waste_by_cause()
+            if algo == "bprr":
+                check(w["backprop"] == 0, f"{tag}: bprr back-propagated "
+                                          f"{w['backprop']}")
+            shares[f"{name}/{algo}"] = w
+            if name == "tree" and algo == "classic":
+                trace.add_propagation_spans(p, elems=range(128),
+                                            prefix="classic/tree/")
+    x0 = join_x0(n, OBS_JOIN_U, 0.25)
+    stalls = {}
+    for algo in ("bprr", "state_driven"):
+        runs = obs_engines(
+            check, launches, f"anomaly join {algo}", algo, OBS_JOIN_ROUNDS,
+            lambda e, d: simulate(algo, GSet(OBS_JOIN_U).lattice, mesh,
+                                  no_op, 0, OBS_JOIN_ROUNDS, x0=x0,
+                                  track_convergence=True, engine=e,
+                                  telemetry=TelemetrySpec(), device=d),
+            cpu=True)
+        stalls[algo] = detect_stalls(runs["mega"].telemetry,
+                                     tx=runs["mega"].tx, k=3)
+    check(bool(stalls["bprr"]) and all(
+        ev.cause == NON_CONVERGENCE for ev in stalls["bprr"]),
+        f"anomaly join bprr: {stalls['bprr']}")
+    check(stalls["state_driven"] == [],
+          f"anomaly join state_driven: {stalls['state_driven']}")
+    total = events + quiet
+    cut = FaultSchedule.partition(mesh, total, 1, total - 2,
+                                  [0] * (n // 2) + [1] * (n - n // 2))
+    runs = obs_engines(
+        check, launches, "anomaly partition state", "state", total,
+        lambda e, d: simulate("state", lat, mesh, op, 2, total - 2,
+                              faults=cut, engine=e,
+                              telemetry=TelemetrySpec(), device=d),
+        cpu=True)
+    evs = detect_stalls(runs["mega"].telemetry, tx=runs["mega"].tx, k=3)
+    check(bool(evs) and all(ev.cause == FAULT_STALL for ev in evs),
+          f"anomaly partition state: {evs}")
+    stalls["partition"] = evs
+    return {"waste_by_cause": {k: {c: int(v) for c, v in w.items()}
+                               for k, w in shares.items()},
+            "stalls": {k: [vars(ev) for ev in v] for k, v in stalls.items()}}
+
+
+def obs_scale(check, launches):
+    """(c) GMap 4,194,304 keys, K = 10%, mesh15d4, 12 + 8 rounds, bprr and
+    classic, with ``telemetry=`` and ``provenance=`` on mega, fused and
+    reference: tx / mem / cpu and the final states equal the run without
+    observability; every channel and matrix equal across the engines;
+    recv / novel / buf / div_gap and waste_bp / waste_cp / covered equal
+    27,962 × the GCounter(15) run's, stale_rounds and ack_lag equal. mega
+    timed off, with telemetry and with both (median, min, max of 5 runs
+    after a warm-up); peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GCounter, GMap
+    from repro_torch.obs import ProvenanceSpec, TelemetrySpec
+    from repro_torch.sync import simulate, topology
+    from repro_torch.sync import workloads as W
+
+    active, quiet = 12, 8
+    rounds = active + quiet
+    topo = topology.partial_mesh(15, 4)
+    op = W.gmap_block_op(15, SCALE_KEYS, 10)
+    lat = GMap(SCALE_KEYS).lattice
+    per_node = int(W.gmap_key_blocks(15, SCALE_KEYS, 10).sum(1)[0])
+    plane = 15 * SCALE_KEYS * 4
+    modes = {"off": {}, "telemetry": {"telemetry": TelemetrySpec()},
+             "both": {"telemetry": TelemetrySpec(),
+                      "provenance": ProvenanceSpec()}}
+    rows, finals = [], {}
+    for algo in ("bprr", "classic"):
+        k = topo.max_degree + 1 if algo == "bprr" else 1
+        b_ms = ms_bound((2 * k + 3) * plane)
+        oracle = simulate(algo, GCounter(15).lattice, topo,
+                          W.gcounter_op(15), active, quiet,
+                          **modes["both"])
+        runs = {}
+        for mode, kw in modes.items():
+            tag = f"obs gmap{SCALE_KEYS} {algo} mega {mode}"
+            r, ms, peak = scale_run(
+                launches, tag, "mega", algo, rounds,
+                lambda a=active, q=quiet, kw=kw: simulate(
+                    algo, lat, topo, op, a, q, engine="mega", **kw),
+                runs=OBS_TIMED_RUNS)
+            rows.append(scale_row(f"gmap{SCALE_KEYS}_k10_obs_{mode}",
+                                  topo.name, algo, "mega", ms, b_ms, peak, r,
+                                  runs=OBS_TIMED_RUNS))
+            print_scale(tag, ms, b_ms, peak, r, runs=OBS_TIMED_RUNS)
+            runs[mode] = r
+            r = None
+        for mode in ("telemetry", "both"):
+            check(same_run(runs["off"], runs[mode]),
+                  f"obs gmap {algo}: {mode} changed the run")
+        both = runs.pop("both")
+        del runs
+        for engine in ("fused", "reference"):
+            t0 = time.perf_counter()
+            r = launches.run(f"obs gmap{SCALE_KEYS} {algo} {engine} both",
+                             engine, algo, rounds,
+                             lambda e=engine: simulate(
+                                 algo, lat, topo, op, active, quiet,
+                                 engine=e, **modes["both"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / rounds
+            print(f"obs gmap{SCALE_KEYS} {algo} {engine} both: {ms:.3f} "
+                  f"ms/round (one run, no warm-up)", flush=True)
+            rows.append({"workload": f"gmap{SCALE_KEYS}_k10_obs_both",
+                         "topo": topo.name, "algo": algo, "engine": engine,
+                         "ms_per_round_one_run": ms, "runs": 1})
+            check(same_obs(both, r), f"obs gmap {algo}: {engine} differs "
+                                     f"from mega")
+            del r
+        t, p = both.telemetry, both.provenance
+        for f in ("recv_elems", "novel_elems", "buf_elems", "div_gap"):
+            check(np.array_equal(getattr(t, f),
+                                 per_node * getattr(oracle.telemetry, f)),
+                  f"obs gmap {algo}: {f} != {per_node} x GCounter(15)")
+        for f in ("stale_rounds", "ack_lag"):
+            check(np.array_equal(getattr(t, f),
+                                 getattr(oracle.telemetry, f)),
+                  f"obs gmap {algo}: {f} != GCounter(15)")
+        for f in ("waste_bp", "waste_cp", "covered"):
+            check(np.array_equal(getattr(p, f),
+                                 per_node * getattr(oracle.provenance, f)),
+                  f"obs gmap {algo}: {f} != {per_node} x GCounter(15)")
+        finals[algo] = both.final_x
+        del both, t, p
+        torch.cuda.empty_cache()
+    return rows, finals["bprr"]
+
+
+def obs_scuttlebutt(check, bprr_final):
+    """(d) Scuttlebutt: fig7's four rows, fig10's column and fig9's
+    measured entries, value for value, on the card; then the GMap codec
+    at 4,194,304 keys (K = 10%, mesh15d4, 12 + 8 rounds): tx / mem /
+    max_mem_node equal 27,962 × the GCounter codec's and 27,962 / 7 × the
+    1,000-key codec's, and the final states equal (c)'s bprr run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sync import scuttlebutt as sb
+    from repro_torch.sync import topology
+    from repro_torch.sync import workloads as W
+
+    results = REPO / "benchmarks" / "results"
+    fig7 = json.loads((results / "fig7_transmission.json").read_text())
+    fig9 = json.loads((results / "fig9_metadata.json").read_text())
+    fig10 = json.loads((results / "fig10_memory.json").read_text())
+    n, events, quiet = 15, 100, 20
+    codecs = {"gset": W.scuttlebutt_gset_codec(n, events),
+              "gcounter": W.scuttlebutt_gcounter_codec(n),
+              "gmap10": W.scuttlebutt_gmap_codec(10, n, 1000),
+              "gmap100": W.scuttlebutt_gmap_codec(100, n, 1000)}
+    for bench in ("gset", "gcounter"):
+        for tn in ("tree", "mesh"):
+            topo = topology.by_name(tn, n, 4)
+            r = sb.simulate(codecs[bench], topo, events, quiet)
+            got = {"tx": r.total_tx + sb.summary_vector_elems(
+                       topo.num_edges, n, events),
+                   "tx_data_only": r.total_tx,
+                   "mem_avg": float(r.mem.mean()),
+                   "mem_max_node": int(r.max_mem_node.max()),
+                   "cpu": int(r.cpu.sum())}
+            want = fig7[f"{bench}_{tn}"]["raw"]["scuttlebutt"]
+            check(got == want, f"scuttlebutt fig7 {bench}_{tn}: {got} vs "
+                               f"{want}")
+    mesh = topology.partial_mesh(n, 4)
+    for bench, codec in codecs.items():
+        r = sb.simulate(codec, mesh, events, quiet)
+        got, want = float(r.mem.mean()), fig10[bench]["raw"]["scuttlebutt"]
+        check(got == want, f"scuttlebutt fig10 {bench}: {got} vs {want}")
+    m16 = topology.partial_mesh(16, 4)
+    r = sb.simulate(W.scuttlebutt_gcounter_codec(16), m16, 10, 2)
+    want = fig9["measured_entries"]["16"]["per_round"]
+    check(int(r.meta_tx[0]) == want, f"scuttlebutt fig9: {r.meta_tx[0]} vs "
+                                     f"{want}")
+
+    active, quiet = 12, 8
+    per = int(W.gmap_key_blocks(n, SCALE_KEYS, 10).sum(1)[0])
+    per_small = int(W.gmap_key_blocks(n, 1000, 10).sum(1)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = sb.simulate(W.scuttlebutt_gmap_codec(10, n, SCALE_KEYS), mesh,
+                      active, quiet)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    small = sb.simulate(codecs["gmap10"], mesh, active, quiet)
+    gc = sb.simulate(codecs["gcounter"], mesh, active, quiet)
+    for f in ("tx", "mem", "max_mem_node"):
+        a = getattr(big, f)
+        check(np.array_equal(a, per * getattr(gc, f))
+              and np.array_equal(a * per_small, getattr(small, f) * per),
+              f"scuttlebutt gmap{SCALE_KEYS}: {f} does not scale by "
+              f"{per} / {per_small}")
+    check(torch.equal(big.final_x, bprr_final),
+          f"scuttlebutt gmap{SCALE_KEYS}: final states differ from bprr's")
+    print(f"scuttlebutt gmap{SCALE_KEYS}: {active + quiet} rounds and the "
+          f"final states in {wall:.2f} s; tx {big.total_tx}", flush=True)
+    return {"gmap_4m_wall_s": wall, "gmap_4m_tx": big.total_tx}
+
+
+def obs_batched(check, launches):
+    """(e) Sweeps and the store with observability: phase 6's BENCH_fault
+    sweep (B = 5 scenarios) and fig_digest join grid with ``telemetry=``
+    and ``provenance=`` on three engines, every cell's channels equal to
+    its single run's; the committed Retwis store (mesh16, 96 objects, 32
+    slots, 40 rounds) with both on three engines, every object equal to
+    its single run; Retwis at the paper setting (mesh50, 30,000 objects,
+    64 slots, 113 rounds, bprr, mega) with ``telemetry=`` and
+    ``object_metrics=False``, timed against the run without, chunked and
+    checkpointed under ``build/``, its resumed partials equal to the
+    uninterrupted run's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import GSet
+    from repro_torch.obs import ProvenanceSpec, TelemetrySpec
+    from repro_torch.sync import (DigestSpec, SweepSpec, resume_store,
+                                  simulate, simulate_store, simulate_sweep,
+                                  topology)
+    from repro_torch.sync import workloads as W
+
+    results = REPO / "benchmarks" / "results"
+    both = {"telemetry": TelemetrySpec(), "provenance": ProvenanceSpec()}
+    out = {"cells": 0}
+
+    def cells_ok(tag, runs, singles):
+        for e, r in runs.items():
+            for b, single in enumerate(singles):
+                check(same_obs(r.cell(b), single),
+                      f"{tag} {e}: cell {b} differs from its single run")
+                out["cells"] += 1
+
+    bench = json.loads((results / "BENCH_fault.json").read_text())
+    events, quiet = bench["events"], bench["quiet"]
+    topo = topology.partial_mesh(bench["nodes"], 4)
+    n = topo.num_nodes
+    scheds = fault_scenarios(topo, events, quiet)
+    names = list(bench["cells"])
+    spec = SweepSpec(batch=len(names),
+                     op_fn=W.gset_unique_sweep_op(n, events, (0,)),
+                     faults=[scheds[s] for s in names])
+    lat, op = GSet(n * events).lattice, W.gset_unique_op(n, events)
+    for algo in bench["cells"][names[0]]["raw"]:
+        tag = f"obs sweep fault {algo}"
+        runs = obs_engines(check, launches, tag, algo, events + quiet,
+                           lambda e, d: simulate_sweep(
+                               algo, lat, topo, spec, events, quiet,
+                               engine=e, device=d, **both))
+        singles = [launches.run(f"{tag} single {s}", "mega", algo,
+                                events + quiet, lambda s=s: simulate(
+                                    algo, lat, topo, op, events, quiet,
+                                    faults=scheds[s], engine="mega", **both))
+                   for s in names]
+        cells_ok(tag, runs, singles)
+
+    fig = json.loads((results / "fig_digest.json").read_text())
+    topo = topology.partial_mesh(fig["nodes"], 4)
+    n, u, dspec = topo.num_nodes, fig["universe"], DigestSpec(
+        fig["block_elems"])
+    jlat = GSet(u).lattice
+    for algo, rows in fig["join"].items():
+        x0s = [join_x0(n, u, rows[k]["divergence"]) for k in rows]
+        spec = SweepSpec(batch=len(x0s), op_fn=no_op, x0=torch.stack(x0s))
+        tag = f"obs sweep join {algo}"
+        runs = obs_engines(check, launches, tag, algo, fig["rounds"],
+                           lambda e, d: simulate_sweep(
+                               algo, jlat, topo, spec, 0, fig["rounds"],
+                               engine=e, track_convergence=True,
+                               digest=dspec, device=d, **both))
+        singles = [launches.run(f"{tag} single {b}", "mega", algo,
+                                fig["rounds"], lambda x0=x0: simulate(
+                                    algo, jlat, topo, no_op, 0,
+                                    fig["rounds"], x0=x0, engine="mega",
+                                    track_convergence=True, digest=dspec,
+                                    **both))
+                   for b, x0 in enumerate(x0s)]
+        cells_ok(tag, runs, singles)
+
+    nodes, objects, slots, rounds, ops = 16, 96, 32, 40, 6
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, counts = retwis_store(1.0, nodes, objects, slots, rounds, ops)
+    for algo in ("classic", "bprr"):
+        tag = f"obs retwis {algo}"
+        runs = {e: launches.run(f"{tag} {e}", e, algo, rounds,
+                                lambda e=e: simulate_store(
+                                    algo, lat, topo, spec, rounds, engine=e,
+                                    **both), objects)
+                for e in ("reference", "fused", "mega")}
+        for o in range(objects):
+            single = launches.run(
+                f"{tag} object {o}", "mega", algo, rounds,
+                lambda o=o: simulate(
+                    algo, lat, topo, W.versioned_slot_cell_op(counts, o,
+                                                              slots),
+                    rounds, engine="mega", **both))
+            for e, r in runs.items():
+                check(same_obs(r.object_result(o), single),
+                      f"{tag} {e}: object {o} differs from its single run")
+        out["cells"] += 3 * objects
+        del runs
+
+    nodes, objects, slots, active, quiet, ops = RETWIS_PAPER
+    total = active + quiet
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, active, ops)
+    plane = objects * nodes * slots * 4
+    b_ms = ms_bound(13 * plane)
+    rows, res = [], {}
+    for mode, kw in (("off", {}), ("telemetry",
+                                   {"telemetry": TelemetrySpec()})):
+        tag = f"obs retwis paper bprr mega {mode}"
+        r, ms, peak = scale_run(
+            launches, tag, "mega", "bprr", total,
+            lambda a=active, q=quiet, kw=kw: simulate_store(
+                "bprr", lat, topo, spec, a, q, engine="mega",
+                object_metrics=False, **kw), objects, runs=3)
+        rows.append(scale_row("retwis_mesh50_30k_s64_obs_" + mode, topo.name,
+                              "bprr", "mega", ms, b_ms, peak, r, runs=3))
+        print_scale(tag, ms, b_ms, peak, r, runs=3)
+        res[mode] = r
+    ckdir = REPO / "build" / "obs_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    half = total // 2
+
+    class KeepHalf(Checkpointer):
+        """Writes only the bundle the resume reads."""
+
+        def save(self, step, state, extra=None):
+            return super().save(step, state, extra) if step == half else ""
+
+    tele = {"telemetry": TelemetrySpec()}
+    t0 = time.perf_counter()
+    chunked = launches.run(
+        "obs retwis paper checkpointed", "mega", "bprr", total,
+        lambda: simulate_store("bprr", lat, topo, spec, active, quiet,
+                               engine="mega", object_metrics=False,
+                               chunk_rounds=half, checkpoint=KeepHalf(ckdir),
+                               **tele), objects)
+    ck_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = launches.run(
+        "obs retwis paper resumed", "mega", "bprr", total - half,
+        lambda: resume_store("bprr", lat, topo, spec, active, quiet,
+                             checkpoint=KeepHalf(ckdir), step=half,
+                             engine="mega", object_metrics=False, **tele),
+        objects)
+    resume_s = time.perf_counter() - t0
+    shutil.rmtree(ckdir, ignore_errors=True)
+    base = res["telemetry"]
+    for tag, r in (("chunked", chunked), ("resumed", resumed)):
+        check(same_obs(base.sim, r.sim), f"obs retwis paper: the {tag} "
+                                         f"run differs")
+    check(same_run(res["off"].sim, base.sim),
+          "obs retwis paper: telemetry changed the run")
+    check(base.telemetry.recv_elems.shape == (1, total, nodes)
+          and base.telemetry.recv_elems.dtype == np.int64,
+          "obs retwis paper: the partials are not [1, T, N] int64")
+    print(f"obs retwis paper: checkpointed run {ck_s:.1f} s, resume from "
+          f"round {half} {resume_s:.1f} s", flush=True)
+    out.update(rows=rows, checkpointed_s=ck_s, resume_s=resume_s)
+    return out
+
+
+def obs_phase(check, launches, log):
+    """Phase 8, observability and the Scuttlebutt baseline: parts (a)-(e)
+    above, each part's seconds printed. Returns the phase's trace: a span
+    a part, the counter tracks of classic and bprr under loss and 128
+    element lineages of classic on the tree."""
+    from repro_torch.obs import TraceLog
+
+    trace = TraceLog()
+    part_s, out = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        with trace.span(name):
+            r = fn(*args)
+        part_s[name] = time.perf_counter() - t0
+        print(f"  obs part {name}: {part_s[name]:.1f} s", flush=True)
+        return r
+
+    out["fig_telemetry"] = part("a_fig_telemetry", obs_fig_telemetry, check,
+                                launches, trace)
+    out["fig_provenance"] = part("b_fig_provenance", obs_fig_provenance,
+                                 check, launches, trace)
+    rows, bprr_final = part("c_scale", obs_scale, check, launches)
+    out["scuttlebutt"] = part("d_scuttlebutt", obs_scuttlebutt, check,
+                              bprr_final)
+    del bprr_final
+    out["batched"] = part("e_batched", obs_batched, check, launches)
+    check(len(trace.events) > 128, f"obs trace: {len(trace.events)} events")
+    out.update(scale=rows, part_s=part_s, trace_events=len(trace.events))
+    log["obs"] = out
+    return trace
 
 
 # -- driver ----------------------------------------------------------------------
@@ -2120,6 +2719,19 @@ def main() -> int:
         check(launches3[name] > 0, f"{name} was never launched on the "
                                    f"lex-pair main path")
         launches[name] = launches3[name]
+
+    # 8. observability and the Scuttlebutt baseline (simulate, sweeps and
+    # the store with telemetry= / provenance= / trace=), with the counters
+    # zeroed around it
+    kernels.reset_launches()
+    expect8 = Launches(check)
+    obs_trace = timed("obs", obs_phase, check, expect8, log)
+    launches8 = kernels.launch_counts()
+    check(launches8 == expect8.total, f"observability-path launches "
+                                      f"{launches8}, expected {expect8.total}")
+    for name in SYNC_KERNELS:
+        check(launches8[name] > 0, f"{name} was never launched on the "
+                                   f"observability path")
     timed("profile", profile_phase, check, log)
 
     rows = []
@@ -2128,12 +2740,14 @@ def main() -> int:
         err = max(e, grid_errs[name])
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
-               "launches": launches[name] + launches6[name],
+               "launches": launches[name] + launches6[name]
+               + launches8[name],
                "max_abs_err": err, "equal": err == 0, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms,
                "launches_by_path": {"unbatched": launches[name],
-                                    "batched": launches6[name]}}
+                                    "batched": launches6[name],
+                                    "observability": launches8[name]}}
         if name in store_shapes:
             row["store_shapes"] = store_shapes[name]
         rows.append(row)
@@ -2142,6 +2756,8 @@ def main() -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(log, indent=1))
+    obs_trace.export_chrome(out / "obs_trace.json")
+    obs_trace.export_jsonl(out / "obs_trace.jsonl")
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} checks failed", file=sys.stderr)
         return 1

@@ -15,7 +15,7 @@ leaf's device, numpy leaves as numpy arrays.
 
 The format is the port's own: the JAX package's ``arrays.npz`` bundles are
 not read. The replicated checkpoint registry (``CheckpointRegistry``) waits
-for ROADMAP A12.
+for ROADMAP A6.
 """
 
 from __future__ import annotations

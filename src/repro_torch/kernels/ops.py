@@ -24,18 +24,20 @@ __all__ = ["buffer_fold", "delta_extract", "digest_blocks", "join",
 
 def sync_round(delta, x, buf, active, delivered, *, nbrs, rev,
                kind: str = "max", per_origin: bool = False,
-               extracts: bool = False):
+               extracts: bool = False, want_inbox: bool = False):
     """One full Algorithm 1/2 round in one ``round_step`` launch, on the
     canonical operands of ``repro.kernels.ops.sync_round``: delta/x
     [B, N, U], buf [K, B, N, U] or None, active [B, N, P], delivered
-    [B, N]. The masked inbox comes out for the classic/bp flavours
-    (buffered, not extracting), whose keep gate needs it. Returns
-    ``(x', buf', inbox, dsz_op, xsz, ssend, cnt, dsz)``."""
+    [B, N]. The masked inbox [P, B, N, U] comes out for the classic/bp
+    flavours (buffered, not extracting), whose keep gate needs it, and
+    for any flavour with ``want_inbox`` (the provenance replay); else it
+    is None. Returns ``(x', buf', inbox, dsz_op, xsz, ssend, cnt,
+    dsz)``."""
     has_buffer = buf is not None
     return round_step(delta, x, buf, active, delivered, nbrs, rev,
                       kind=kind, per_origin=per_origin,
                       extracts=bool(extracts and has_buffer),
-                      emit_inbox=has_buffer and not extracts)
+                      emit_inbox=(has_buffer and not extracts) or want_inbox)
 
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,13 @@ with the C interface of the first port (``git show
 checkout, so an earlier commit unpacked by ``git archive`` can be run in
 turn with this one), the paper-size runs (fig7's GSet and GCounter and
 fig8's GMap 10% / 100% rows: 5 algorithms × tree and mesh × 3 engines, 100
-+ 20 rounds) in seconds, and GMap 4,194,304-key bprr and classic on
-``mega`` and bprr on ``fused``, on the mesh (12 + 8 rounds, ms/round:
-median, min and max of 5 runs after a one-round warm-up) with peak memory.
++ 20 rounds) in seconds, GMap 4,194,304-key bprr and classic on ``mega``
+and bprr on ``fused``, on the mesh (12 + 8 rounds), and the GMap join at
+4,194,304 keys of ``chip_smoke.py``'s scale phase (donors hold keys
+[0, 256) of every 1,024-key tile, the joiner nothing; 12 rounds, block 64)
+for ``digest_driven`` on ``mega`` and ``fused`` and ``state_driven`` on
+``mega``: ms/round as the median, min and max of 5 runs after a one-round
+warm-up, with peak memory.
 
 Kernel times are the median of 25 samples, each the CUDA-event time per
 call of 5 back-to-back calls behind one more call, as in ``chip_smoke.py``.
@@ -210,7 +214,7 @@ def rounds():
     from repro_torch.core import GCounter, GMap, GSet
     from repro_torch.kernels import _build as B
     from repro_torch.sync import (ALGORITHMS, ENGINES, RESYNC_ALGORITHMS,
-                                  simulate, topology)
+                                  DigestSpec, simulate, topology)
     from repro_torch.sync import workloads as W
 
     B.build_all()
@@ -234,23 +238,40 @@ def rounds():
     topo = topology.by_name("mesh", 15, 4)
     op = W.gmap_block_op(15, KEYS, 10)
     lat = GMap(KEYS).lattice
-    for algo, engine in (("bprr", "mega"), ("classic", "mega"),
-                         ("bprr", "fused")):
-        simulate(algo, lat, topo, op, 1, 0, engine=engine)
+
+    def timed_runs(what, run, rounds):
+        """``run(active, quiet)``: one round, then 5 timed runs of
+        ``rounds``."""
+        run(*((1, 0) if rounds == 20 else (0, 1)))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            r = simulate(algo, lat, topo, op, 12, 8, engine=engine)
+            r = run(*((12, 8) if rounds == 20 else (0, rounds)))
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3 / 20)
+            times.append((time.perf_counter() - t0) * 1e3 / rounds)
             del r
-        emit(what=f"gmap{KEYS} mesh {algo} {engine}",
-             ms_per_round=statistics.median(times), min=min(times),
-             max=max(times),
+        emit(what=what, ms_per_round=statistics.median(times),
+             min=min(times), max=max(times),
              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         torch.cuda.empty_cache()
+
+    for algo, engine in (("bprr", "mega"), ("classic", "mega"),
+                         ("bprr", "fused")):
+        timed_runs(f"gmap{KEYS} mesh {algo} {engine}",
+                   lambda a, q: simulate(algo, lat, topo, op, a, q,
+                                         engine=engine), 20)
+    x0 = torch.zeros((15, KEYS), dtype=torch.int32)
+    x0[1:] = ((torch.arange(KEYS) % 1024) < 256).to(torch.int32)
+    for algo, engine in (("digest_driven", "mega"), ("digest_driven",
+                                                     "fused"),
+                         ("state_driven", "mega")):
+        timed_runs(f"join gmap{KEYS} mesh {algo} {engine}",
+                   lambda a, q: simulate(
+                       algo, lat, topo, lambda x, t: torch.zeros_like(x), a,
+                       q, x0=x0, engine=engine, track_convergence=True,
+                       digest=DigestSpec(64)), 12)
 
 
 def main(argv=None) -> int:

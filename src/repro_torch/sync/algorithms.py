@@ -294,32 +294,56 @@ class SyncAlgorithm:
 
     # -- one synchronous round -----------------------------------------------
 
-    def round_step(self, carry: AlgoCarry, op_delta, faults=None):
+    def round_step(self, carry: AlgoCarry, op_delta, faults=None,
+                   recv_counts: bool = False, want_inbox: bool = False):
         """One synchronous round; ``faults`` is one round's
         ``faults.RoundFaults`` (None: fault-free; batched, per-config
         [B, N, P] or store-shared [1, N, P] masks). Returns
-        ``(carry, RoundMetrics)``, the metrics 0-d or per config [B]."""
-        if self.batch is None:
-            return self._round(carry, op_delta, faults)
-        carry, m = self._round(self._carry_rows(carry, True),
-                               T.merge_axes(op_delta, 0),
-                               self.rows_faults(faults))
-        return self._carry_rows(carry, False), m
+        ``(carry, RoundMetrics)``, the metrics 0-d or per config [B].
 
-    def _round(self, carry: AlgoCarry, op_delta, faults):
+        With ``recv_counts`` (telemetry) a third element ``(recv,
+        novel)``: int32 [(B,) N] received and novel-at-join element
+        tallies summed over the P receive slots, the same on every engine
+        (the kernel engines sum the kernels' ``dsz``/``cnt``, the
+        reference loop counts them per slot). With ``want_inbox``
+        (provenance) the LAST element is the active-masked inbox, slot-
+        major [P, (B,) N, ...U]: per receive slot the δ-group the
+        slot-order fold consumed, ⊥ where topology padding or a fault
+        suppressed it; the same on every engine. With neither flag the
+        round is the one it always was."""
+        if self.batch is None:
+            return self._round(carry, op_delta, faults, recv_counts,
+                               want_inbox)
+        out = self._round(self._carry_rows(carry, True),
+                          T.merge_axes(op_delta, 0), self.rows_faults(faults),
+                          recv_counts, want_inbox)
+        ret = (self._carry_rows(out[0], False), out[1])
+        if recv_counts:
+            ret += (tuple(r.reshape(self.lead) for r in out[2]),)
+        if want_inbox:
+            ret += (T.split_axis(out[-1], 1, self.batch),)
+        return ret
+
+    def _round(self, carry: AlgoCarry, op_delta, faults, recv_counts=False,
+               want_inbox=False):
         """One round over the rows of :attr:`rows` (a carry whose per-node
-        axis is the R rows)."""
+        axis is the R rows); the extra returns of :meth:`round_step` per
+        row."""
         if self.is_resync:
-            return self._resync_round(carry, op_delta, faults)
+            return self._resync_round(carry, op_delta, faults, recv_counts,
+                                      want_inbox)
         lat = self.lattice
         p = self.topo.max_degree
         x, buf, buf_elems, _ = carry
 
         if self.resolved_engine == "mega":
-            x, buf, buf_elems, tx, cpu, state_elems = engine_mod.mega_round(
-                self, x, buf, buf_elems, op_delta, faults)
-            return AlgoCarry(x, buf, buf_elems), self._metrics(
-                tx, cpu, state_elems, buf_elems)
+            x, buf, buf_elems, tx, cpu, state_elems, recv, inbox = \
+                engine_mod.mega_round(self, x, buf, buf_elems, op_delta,
+                                      faults, recv_counts, want_inbox)
+            return self._extras(
+                (AlgoCarry(x, buf, buf_elems),
+                 self._metrics(tx, cpu, state_elems, buf_elems)),
+                recv, inbox, recv_counts, want_inbox)
 
         # (1) local update: δ = mᵟ(xᵢ); store(δ, i)      [Alg 2, lines 6-8]
         dsz = lat.size(op_delta)                                   # [N]
@@ -361,15 +385,28 @@ class SyncAlgorithm:
             # gigabytes
             inbox = engine_mod.gather_inbox(d_all, self.rows)
             del d_all
-            x, buf, buf_elems, cpu = engine_mod.fused_receive(
-                self, x, buf, buf_elems, cpu, inbox, faults)
+            x, buf, buf_elems, cpu, recv, inbox = engine_mod.fused_receive(
+                self, x, buf, buf_elems, cpu, inbox, faults, recv_counts,
+                want_inbox)
         else:
-            x, buf, buf_elems, cpu = self._receive_reference(
-                x, buf, buf_elems, cpu, d_all, faults)
+            x, buf, buf_elems, cpu, recv, inbox = self._receive_reference(
+                x, buf, buf_elems, cpu, d_all, faults, recv_counts,
+                want_inbox)
 
         # (5) metrics
-        return AlgoCarry(x, buf, buf_elems), self._metrics(
-            tx, cpu, lat.size(x), buf_elems)
+        return self._extras(
+            (AlgoCarry(x, buf, buf_elems),
+             self._metrics(tx, cpu, lat.size(x), buf_elems)),
+            recv, inbox, recv_counts, want_inbox)
+
+    @staticmethod
+    def _extras(ret, recv, inbox, recv_counts, want_inbox):
+        """``(carry, metrics)`` with the requested extra returns."""
+        if recv_counts:
+            ret += (recv,)
+        if want_inbox:
+            ret += (inbox,)
+        return ret
 
     # -- anti-entropy resync rounds -------------------------------------------
 
@@ -380,17 +417,28 @@ class SyncAlgorithm:
         the kernels take contiguous operands."""
         return T.where_lead(cond.T.contiguous(), a, b, self.bottom_shape)
 
-    def _join_inbox(self, x, inbox):
+    def _join_inbox(self, x, inbox, want_novel: bool = False):
         """x ⊔ every (pre-masked) inbox slot [P, N, U], in slot order: one
         ``round_recv`` launch on the kernel engines, the torch loop on the
-        reference engine (max/or joins are exact, so both agree)."""
+        reference engine (max/or joins are exact, so both agree). With
+        ``want_novel`` (telemetry) returns ``(x, novel)``: the per-row
+        novel-element tally |Δ(slot, x_running)| summed over the slots —
+        the kernel's ``cnt``, or a Δ + size pass a slot on the reference
+        engine."""
         if self.resolved_engine in engine_mod.KERNEL_ENGINES:
-            return engine_mod.fused_join_inbox(self, x, inbox)
+            return engine_mod.fused_join_inbox(self, x, inbox, want_novel)
+        lat = self.lattice
+        novel = None
         for q in range(self.topo.max_degree):
-            x = self.lattice.join(x, T.slot(inbox, q))
-        return x
+            d = T.slot(inbox, q)
+            if want_novel:
+                sz = lat.size(lat.delta(d, x)).to(torch.int32)
+                novel = sz if novel is None else novel + sz
+            x = lat.join(x, d)
+        return (x, novel) if want_novel else x
 
-    def _resync_round(self, carry: AlgoCarry, op_delta, faults=None):
+    def _resync_round(self, carry: AlgoCarry, op_delta, faults=None,
+                      recv_counts: bool = False, want_inbox: bool = False):
         """One pipelined anti-entropy round of ``state_driven`` /
         ``digest_driven``.
 
@@ -464,8 +512,16 @@ class SyncAlgorithm:
         # (3) receive: gather and mask once (the masked inbox is also the
         # Δ-response operand), then one join fold per engine
         inbox = T.where_bot(valid, engine_mod.gather_inbox(d_all, topo))
-        cpu = cpu + self.msum(lat.size(inbox))
-        x = self._join_inbox(x, inbox)
+        recv_sizes = lat.size(inbox)                               # [P, R]
+        cpu = cpu + self.msum(recv_sizes)
+        recv = None
+        if recv_counts:
+            # telemetry: received payload and its novel part at join time
+            # (digest and descent words are metadata, not payload)
+            x, novel = self._join_inbox(x, inbox, want_novel=True)
+            recv = (recv_sizes.sum(0, dtype=torch.int32), novel)
+        else:
+            x = self._join_inbox(x, inbox)
 
         if self.name == "state_driven":
             # (4a) responses: Δ(x', request) for every delivered request,
@@ -490,8 +546,11 @@ class SyncAlgorithm:
             # memory: the stored remote digests are this mode's metadata
             buf_elems = dvalid.sum(0, dtype=torch.int32) * spec.words(u)
 
-        return AlgoCarry(x, buf, buf_elems, aux), self._metrics(
-            tx, cpu, lat.size(x), buf_elems)
+        # the resync inbox was built masked: it is the provenance view
+        return self._extras(
+            (AlgoCarry(x, buf, buf_elems, aux),
+             self._metrics(tx, cpu, lat.size(x), buf_elems)),
+            recv, inbox, recv_counts, want_inbox)
 
     def _metrics(self, tx, cpu, state_elems, buf_elems) -> RoundMetrics:
         """The round's metrics from the [R] state and buffer sizes: the
@@ -503,14 +562,31 @@ class SyncAlgorithm:
         return RoundMetrics(tx=tx, mem=node_mem.sum(-1, dtype=acc), cpu=cpu,
                             max_mem_node=node_mem.amax(-1))
 
-    def _receive_reference(self, x, buf, buf_elems, cpu, d_all, faults=None):
-        """Reference receive: the sequential per-slot loop."""
+    def _receive_reference(self, x, buf, buf_elems, cpu, d_all, faults=None,
+                           want_recv: bool = False, want_inbox: bool = False):
+        """Reference receive: the sequential per-slot loop. Returns
+        ``(x, buf, buf_elems, cpu, recv, inbox)``: ``recv`` the telemetry
+        ``(recv, novel)`` per-row tallies when ``want_recv``, ``inbox``
+        the stacked masked slots [P, R, ...U] when ``want_inbox`` (each
+        None otherwise)."""
         lat, topo = self.lattice, self.rows
         recv_valid = self.recv_valid(faults)
+        tally = {"recv": 0, "novel": 0}
+        slots = []
+
+        def count(name, v):
+            tally[name] = tally[name] + v.to(torch.int32)
+
         for q in range(topo.max_degree):
             valid = recv_valid[:, q]
             d = T.where_bot(valid, T.gather(d_all, topo.rev[:, q].long(),
                                             topo.nbrs[:, q].long()))
+            if want_inbox:
+                slots.append(d)
+            if want_recv:
+                count("recv", lat.size(d))
+                if not self.extracts:   # RR's extraction below is this Δ
+                    count("novel", lat.size(lat.delta(d, x)))
             if self.name == "state":
                 cpu = cpu + self.msum(lat.size(d))
                 x = lat.join(x, d)
@@ -522,6 +598,8 @@ class SyncAlgorithm:
                 stored = d                                     # whole group
                 keep = torch.logical_not(lat.leq(d, x)) & valid  # inflation
             ssz = lat.size(stored) * keep
+            if want_recv and self.extracts:
+                count("novel", ssz)
             cpu = cpu + self.msum(lat.size(d)) + self.msum(ssz)
             x = lat.join(x, d)
             if self.per_origin:
@@ -531,4 +609,6 @@ class SyncAlgorithm:
             else:
                 buf = T.where(keep, lat.join(buf, stored), buf)
             buf_elems = buf_elems + ssz
-        return x, buf, buf_elems, cpu
+        recv = (tally["recv"], tally["novel"]) if want_recv else None
+        inbox = T.stack(slots) if want_inbox else None
+        return x, buf, buf_elems, cpu, recv, inbox

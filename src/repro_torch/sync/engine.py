@@ -82,7 +82,8 @@ def fused_loo_sends(buf, kind: str):
     return kops.buffer_fold(buf, kind=kind)
 
 
-def fused_receive(algo, x, buf, buf_elems, cpu, inbox, faults=None):
+def fused_receive(algo, x, buf, buf_elems, cpu, inbox, faults=None,
+                  want_recv: bool = False, want_inbox: bool = False):
     """Algorithm 2 lines 14-17 for all P slots in one ``round_recv`` launch,
     on the routed inbox [P, R, U] (:func:`gather_inbox`).
 
@@ -95,16 +96,25 @@ def fused_receive(algo, x, buf, buf_elems, cpu, inbox, faults=None):
     kernel's active-slot input, so a dropped slot adds nothing to x, the
     counts or the buffers. ``buf`` is this round's cleared buffer (a fresh
     tensor), so it is updated in place. Returns
-    ``(x, buf, buf_elems, cpu)``."""
+    ``(x, buf, buf_elems, cpu, recv, inbox)``: ``recv`` the telemetry
+    ``(recv, novel)`` per-row int32 tallies summed from the kernel's
+    ``dsz``/``cnt`` when ``want_recv`` (else None), ``inbox`` the
+    active-masked inbox [P, R, U] — what the slot-order fold consumed, ⊥
+    where a slot was suppressed — when ``want_inbox`` (the provenance
+    replay; else None). The launch is the same either way."""
     lat = algo.lattice
     kind = lat.kernel_kind
     p = algo.topo.max_degree
+    valid = algo.recv_valid(faults)
     x, stored, _, cnt, dsz = kops.round_recv(
-        inbox, x, kind=kind, active=algo.recv_valid(faults),
-        emit_stored=algo.extracts)
+        inbox, x, kind=kind, active=valid, emit_stored=algo.extracts)
+    recv = (dsz.sum(-1, dtype=torch.int32),
+            cnt.sum(-1, dtype=torch.int32)) if want_recv else None
+    mib = torch.where(valid.T[..., None], inbox, inbox.new_zeros(())) \
+        if want_inbox else None
     cpu = cpu + algo.msum(dsz.T)
     if not algo.has_buffer:                              # state-based
-        return x, buf, buf_elems, cpu
+        return x, buf, buf_elems, cpu, recv, mib
     if algo.extracts:                                    # rr / bprr
         ssz = cnt
         slot_vals = stored                               # [P, N, U]
@@ -119,23 +129,30 @@ def fused_receive(algo, x, buf, buf_elems, cpu, inbox, faults=None):
         buf = lat.join(buf, fold_slots(slot_vals, kind))
     cpu = cpu + algo.msum(ssz.T)
     buf_elems = buf_elems + ssz.sum(-1, dtype=torch.int32)
-    return x, buf, buf_elems, cpu
+    return x, buf, buf_elems, cpu, recv, mib
 
 
-def mega_round(algo, x, buf, buf_elems, op_delta, faults=None):
+def mega_round(algo, x, buf, buf_elems, op_delta, faults=None,
+               want_recv: bool = False, want_inbox: bool = False):
     """Phases (1)-(4) of one round through one ``round_step`` launch.
 
-    Returns ``(x, buf, buf_elems, tx, cpu, state_elems)``, bit-identical to
-    the reference phases: the kernel emits every count the metrics need as
-    exact int32 per-(node, slot) tallies, and this epilogue sums them in
-    the reference order. The carry's R rows go in as the kernel's
+    Returns ``(x, buf, buf_elems, tx, cpu, state_elems, recv, inbox)``,
+    bit-identical to the reference phases: the kernel emits every count
+    the metrics need as exact int32 per-(node, slot) tallies, and this
+    epilogue sums them in the reference order. The carry's R rows go in
+    as the kernel's
     [B, N, U] configs (B = 1 for a single run) and the buffer as a
     [K, B, N, U] view of the carry's layout (no copy). Faults enter as the
     kernel's ``active`` (delivery) and ``delivered`` (ack-gated clear)
     inputs; the epilogue's ``buf_elems`` follows the same retention.
     Classic/BP's keep-gated merge reduces over the whole universe
     (¬(d ⊑ x) ⇔ cnt > 0), so it runs here on the kernel's masked inbox,
-    joined in place into the kernel's fresh buffer output.
+    joined in place into the kernel's fresh buffer output. ``recv`` is
+    the telemetry ``(recv, novel)`` per-row pair summed from the kernel's
+    ``dsz``/``cnt`` when ``want_recv`` (else None); ``want_inbox`` makes
+    the kernel emit the masked inbox for every flavour (state, rr and bprr
+    do not need it themselves) and returns it as [P, R, U] for the
+    provenance replay (else None).
     """
     lat, topo = algo.lattice, algo.topo
     kind = lat.kernel_kind
@@ -155,17 +172,20 @@ def mega_round(algo, x, buf, buf_elems, op_delta, faults=None):
     xo, bo, inbox, dsz_op, xsz, ssend, cnt, dsz = kops.sync_round(
         op_delta.reshape(cfg + (u,)), x.reshape(cfg + (u,)), bv, active, dlv_in,
         nbrs=topo.nbrs, rev=topo.rev, kind=kind, per_origin=algo.per_origin,
-        extracts=algo.extracts)
+        extracts=algo.extracts, want_inbox=want_inbox)
     xo = xo.reshape(rows, u)
     dsz_op, xsz = dsz_op.reshape(rows), xsz.reshape(rows)
     ssend, cnt, dsz = (a.reshape(rows, p) for a in (ssend, cnt, dsz))
+    recv = (dsz.sum(-1, dtype=torch.int32),
+            cnt.sum(-1, dtype=torch.int32)) if want_recv else None
+    mib = inbox.reshape(p, rows, u) if want_inbox else None
     # metric arithmetic in the reference round_step's order
     cpu = algo.msum(dsz_op)                              # (1) local update
     tx = algo.msum((ssend * algo.send_live(faults)).T)   # (2) sends
     cpu = cpu + tx
     cpu = cpu + algo.msum(dsz.T)                         # (4) receive
     if not algo.has_buffer:
-        return xo, buf, buf_elems, tx, cpu, xsz
+        return xo, buf, buf_elems, tx, cpu, xsz, recv, mib
     # (3) the ack-gated clear ran in the kernel; its entry counts follow
     buf_elems = torch.zeros_like(buf_elems) if dlv is None \
         else torch.where(dlv, 0, buf_elems + dsz_op)
@@ -184,14 +204,19 @@ def mega_round(algo, x, buf, buf_elems, op_delta, faults=None):
             buf = lat.join(buf, fold_slots(slot_vals, kind))
     cpu = cpu + algo.msum(ssz.T)
     buf_elems = buf_elems + ssz.sum(-1, dtype=torch.int32)
-    return xo, buf, buf_elems, tx, cpu, xsz
+    return xo, buf, buf_elems, tx, cpu, xsz, recv, mib
 
 
-def fused_join_inbox(algo, x, inbox):
+def fused_join_inbox(algo, x, inbox, want_novel: bool = False):
     """Resync receive: fold all P pre-masked inbox slots [P, R, U] into x
-    in one ``round_recv`` launch (no extractions; the counts are unused)."""
-    xo, _, _, _, _ = kops.round_recv(inbox, x, kind=algo.lattice.kernel_kind,
-                                     emit_stored=False)
+    in one ``round_recv`` launch (no extractions). With ``want_novel``
+    (telemetry) also returns the kernel's per-slot novelty counts summed
+    per row, as ``(x, novel)``."""
+    xo, _, _, cnt, _ = kops.round_recv(inbox, x,
+                                       kind=algo.lattice.kernel_kind,
+                                       emit_stored=False)
+    if want_novel:
+        return xo, cnt.sum(-1, dtype=torch.int32)
     return xo
 
 

@@ -35,14 +35,24 @@ Scale knobs, all bit-identical to the plain run:
   bit-identically, after checking the bundle was written by the same run
   (a fingerprint of its configuration).
 
+Observability: ``telemetry=`` gives per-object [B, T, N] channels (with
+``object_metrics=False``, one [1, T, N] partial reduced in the loop: sums
+for recv/novel/buf, maxes for stale/ack/gap, in the metric dtype);
+``provenance=`` the per-object lineage (it needs ``object_metrics=True``);
+both carries and their channels ride the checkpoints, and a resume under
+another observability configuration is refused. ``trace=`` takes an
+``obs.TraceLog`` and records the run as a ``store_scan`` span, with a
+``chunk_boundary`` instant at every chunk end of a chunked run and a
+``checkpoint_save`` span around every save.
+
 ``shard=True`` (the object axis over several devices) and ``pad_to`` (its
-pad multiple), ``telemetry=``, ``provenance=`` and ``trace=`` wait for later
-slices (ROADMAP A8's ``torch.distributed`` mesh, A9) and raise
+pad multiple) wait for ROADMAP A4's ``torch.distributed`` mesh and raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional, Union
@@ -52,13 +62,16 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.lattice import BatchWeights, Lattice, tree_leaves
+from repro_torch.obs import provenance as prv
+from repro_torch.obs import telemetry as tel
 from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import RoundMetrics, SyncAlgorithm
 from repro_torch.sync.digest import DigestSpec
 from repro_torch.sync.faults import FaultSchedule, FaultViews, shared_views
 from repro_torch.sync.simulator import (Chunk, SimResult, cat_chunks,
-                                        collect_result, first_stable_round,
-                                        resolve_device, run_rounds)
+                                        check_obs, collect_result,
+                                        first_stable_round, resolve_device,
+                                        run_rounds, wrap_carry)
 from repro_torch.sync.topology import Topology
 
 
@@ -173,6 +186,20 @@ class StoreResult(NamedTuple):
     @property
     def final_x(self):
         return self.sim.final_x
+
+    @property
+    def telemetry(self):
+        """The run's ``obs.TelemetryResult`` (None unless asked for):
+        [B, T, N] per-object channels, or with ``object_metrics=False`` one
+        [1, T, N] partial (sums for recv/novel/buf, maxes for
+        stale/ack/gap)."""
+        return self.sim.telemetry
+
+    @property
+    def provenance(self):
+        """The run's ``obs.ProvenanceResult`` (None unless asked for),
+        per object."""
+        return self.sim.provenance
 
     def object_result(self, b: int) -> SimResult:
         """Object b as a single run's result."""
@@ -300,15 +327,32 @@ def _validate_op_fn(op_fn, x, objects: int, n: int):
                 f"nodes, ...universe] state exactly")
 
 
-def _reduce_objects(m: RoundMetrics, uni):
+def _reduce_objects(m: RoundMetrics, uni, ch=None):
     """The in-loop object reduction of ``object_metrics=False``: each
     round's per-object metrics folded to one [1] partial (sums; the max for
-    ``max_mem_node``); ``uniform`` the [1] all-objects agreement."""
+    ``max_mem_node``); ``uniform`` the [1] all-objects agreement; the
+    telemetry channels ``ch`` (None without telemetry) to [1, N] in the
+    metric dtype — sums for the payload tallies, maxes for the lag and gap
+    channels — so store-scale sums cannot wrap int32."""
     out = RoundMetrics(
         tx=m.tx.sum(0, keepdim=True), mem=m.mem.sum(0, keepdim=True),
         cpu=m.cpu.sum(0, keepdim=True),
         max_mem_node=m.max_mem_node.amax(0, keepdim=True))
-    return out, None if uni is None else torch.all(uni, 0, keepdim=True)
+    uni = None if uni is None else torch.all(uni, 0, keepdim=True)
+    if ch is not None:
+        mdt = m.tx.dtype
+
+        def rsum(v):
+            return v.to(mdt).sum(0, keepdim=True, dtype=mdt)
+
+        def rmax(v):
+            return v.to(mdt).amax(0, keepdim=True)
+
+        ch = tel.TelemetryChannels(
+            recv_elems=rsum(ch.recv_elems), novel_elems=rsum(ch.novel_elems),
+            stale_rounds=rmax(ch.stale_rounds), ack_lag=rmax(ch.ack_lag),
+            buf_elems=rsum(ch.buf_elems), div_gap=rmax(ch.div_gap))
+    return out, uni, ch
 
 
 def simulate_store(
@@ -341,10 +385,11 @@ def simulate_store(
     ``res.object_result(b)`` is bit-identical to the single run of object
     b's op stream and initial state, under the store-shared fault
     schedule, on any ``engine``. ``track_convergence`` defaults on exactly
-    when a fault schedule is given. ``layout`` and the scale knobs
-    (``chunk_rounds``, ``checkpoint``, ``object_metrics``) are described in
-    the module docstring; ``shard``, ``pad_to``, ``telemetry``,
-    ``provenance`` and ``trace`` raise ``NotImplementedError``.
+    when a fault schedule is given. ``layout``, the scale knobs
+    (``chunk_rounds``, ``checkpoint``, ``object_metrics``) and the
+    observability (``telemetry``, ``provenance``, ``trace``) are described
+    in the module docstring; ``shard`` and ``pad_to`` raise
+    ``NotImplementedError``.
     """
     return _simulate_store(
         algo, lattice, topo, spec, active_rounds, quiet_rounds, loo=loo,
@@ -423,11 +468,13 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
         raise NotImplementedError(
             "simulate_store(shard=True, pad_to=): the object axis over "
             "several devices and its padding wait for torch.distributed "
-            "(ROADMAP A8, launch/mesh)")
-    if telemetry is not None or provenance is not None or trace is not None:
-        raise NotImplementedError(
-            "simulate_store(telemetry=, provenance=, trace=): observability "
-            "is ROADMAP A9")
+            "(ROADMAP A4, launch/mesh)")
+    check_obs(telemetry, provenance)
+    if provenance is not None and not object_metrics:
+        raise ValueError(
+            "provenance= requires object_metrics=True: lineage matrices "
+            "are per-object [B, N, E] views and cannot be reduced to one "
+            "partial in the loop")
     if layout not in ("grid", "rows"):
         raise ValueError(f"unknown layout {layout!r}; one of "
                          f"('grid', 'rows')")
@@ -461,9 +508,11 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     reduce = None if object_metrics else _reduce_objects
     fp = _run_fingerprint(algo, engine, lattice, topo, loo, b,
                           total, chunk_rounds, object_metrics,
-                          track_convergence, wide_metrics, digest)
+                          track_convergence, wide_metrics, digest,
+                          telemetry, provenance)
 
-    carry, start, chunks = alg.init(x0), 0, []
+    carry = wrap_carry(alg, alg.init(x0), telemetry, provenance)
+    start, chunks = 0, []
     if resume is not None:
         ckpt_r, at, extra = resume
         bad = [k for k, v in fp.items() if extra.get(k) != v]
@@ -477,26 +526,46 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
                              f"{total}")
         mdt = np.int64 if wide_metrics else np.int32
         lead = (at, b if object_metrics else 1)
+        cdt = np.int32 if object_metrics else mdt
         like = {"carry": carry,
                 "ys": Chunk(tuple(np.zeros(lead, mdt) for _ in range(4)),
                             np.zeros(lead, bool) if track_convergence
-                            else None)}
+                            else None,
+                            None if telemetry is None else tuple(
+                                np.zeros(lead + (n,), cdt)
+                                for _ in range(6)),
+                            None if provenance is None else tuple(
+                                np.zeros(lead + (n,), np.int32)
+                                for _ in range(3)))}
         bundle = ckpt_r.restore(at, like)
         carry, start = bundle["carry"], at
         chunks.append(bundle["ys"])
+        del like, bundle
 
     step = chunk_rounds or max(total - start, 1)
-    for t0 in range(start, total, step):
-        t1 = min(t0 + step, total)
-        carry, ys = run_rounds(alg, carry, spec.op_fn, active_rounds, views,
-                               track_convergence, t0, t1, reduce)
-        chunks.append(ys)
-        if ckpt is not None:
-            ckpt.save(t1, {"carry": carry, "ys": cat_chunks(chunks)},
-                      extra=fp)
+    span = trace.span("store_scan", algo=algo, engine=engine, objects=b,
+                      rounds=total) if trace is not None \
+        else contextlib.nullcontext()
+    with span:
+        for t0 in range(start, total, step):
+            t1 = min(t0 + step, total)
+            carry, ys = run_rounds(alg, carry, spec.op_fn, active_rounds,
+                                   views, track_convergence, t0, t1, reduce,
+                                   telemetry, provenance)
+            chunks.append(ys)
+            if trace is not None and chunk_rounds is not None:
+                trace.instant("chunk_boundary", rounds_done=t1)
+            if ckpt is not None:
+                save = trace.span("checkpoint_save", rounds_done=t1) \
+                    if trace is not None else contextlib.nullcontext()
+                with save:
+                    ckpt.save(t1, {"carry": carry, "ys": cat_chunks(chunks)},
+                              extra=fp)
     if not chunks:
         raise ValueError(f"nothing to run: start={start} >= total={total}")
-    sim = collect_result(carry, cat_chunks(chunks), batched=True)
+    sim = collect_result(carry, cat_chunks(chunks), batched=True,
+                         telemetry=telemetry, provenance=provenance,
+                         nbrs=topo.nbrs)
     del carry
 
     fsb = None
@@ -511,7 +580,8 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
 
 def _run_fingerprint(algo, engine, lattice, topo, loo, objects,
                      total_rounds, chunk_rounds, object_metrics,
-                     track_convergence, wide_metrics, digest) -> dict:
+                     track_convergence, wide_metrics, digest,
+                     telemetry=None, provenance=None) -> dict:
     """JSON-safe identity of a store run, written into every chunk
     checkpoint's manifest and checked on resume: restoring a bundle into a
     differently configured run would fit the same carry shapes for many
@@ -530,4 +600,7 @@ def _run_fingerprint(algo, engine, lattice, topo, loo, objects,
         "track_convergence": bool(track_convergence),
         "wide_metrics": bool(wide_metrics),
         "digest": None if digest is None else digest.block_elems,
+        # observability changes the carry and the channels a bundle holds
+        "telemetry": None if telemetry is None else telemetry.asdict(),
+        "provenance": None if provenance is None else provenance.asdict(),
     }

@@ -27,12 +27,15 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.core.lattice import Lattice
+from repro_torch.obs import provenance as prv
+from repro_torch.obs import telemetry as tel
 from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import SyncAlgorithm
 from repro_torch.sync.digest import DigestSpec
 from repro_torch.sync.faults import FaultSchedule, FaultViews, stacked_views
-from repro_torch.sync.simulator import (SimResult, collect_result,
-                                        resolve_device, run_rounds)
+from repro_torch.sync.simulator import (SimResult, check_obs,
+                                        collect_result, resolve_device,
+                                        run_rounds, wrap_carry)
 from repro_torch.sync.topology import Topology
 
 
@@ -104,8 +107,8 @@ def simulate_sweep(
     track_convergence: Optional[bool] = None,
     shard: bool = False,
     digest: Optional[DigestSpec] = None,
-    telemetry=None,
-    provenance=None,
+    telemetry: Optional[tel.TelemetrySpec] = None,
+    provenance: Optional[prv.ProvenanceSpec] = None,
     device="cuda",
 ) -> SimResult:
     """Run ``spec.batch`` configurations of ``algo`` over the shared
@@ -118,18 +121,20 @@ def simulate_sweep(
     ``track_convergence`` defaults on exactly when a cell has a fault
     schedule.
 
+    ``telemetry`` and ``provenance`` attach the observability results as
+    ``simulate`` does, batched ([B, T, N] channels, [B, N, E] matrices):
+    ``res.telemetry.cell(b)`` and ``res.provenance.cell(b)`` are cell b's
+    single run's.
+
     ``shard=True`` (the config axis over several devices) waits for
-    ROADMAP A8's ``torch.distributed`` mesh; ``telemetry`` and
-    ``provenance`` wait for A9. Each raises ``NotImplementedError``.
+    ROADMAP A4's ``torch.distributed`` mesh and raises
+    ``NotImplementedError``.
     """
     if shard:
         raise NotImplementedError(
             "simulate_sweep(shard=True): the config axis over several "
-            "devices waits for torch.distributed (ROADMAP A8, launch/mesh)")
-    if telemetry is not None or provenance is not None:
-        raise NotImplementedError(
-            "simulate_sweep(telemetry=, provenance=): observability is "
-            "ROADMAP A9")
+            "devices waits for torch.distributed (ROADMAP A4, launch/mesh)")
+    check_obs(telemetry, provenance)
     dev = resolve_device(device)
     alg = SyncAlgorithm(
         name=algo, lattice=lattice, topo=topo.on(dev), loo=loo,
@@ -140,6 +145,9 @@ def simulate_sweep(
     views = spec.stacked_views(topo, total, dev)
     if track_convergence is None:
         track_convergence = views is not None
-    carry, ys = run_rounds(alg, alg.init(spec.x0), spec.op_fn, active_rounds,
-                           views, track_convergence, 0, total)
-    return collect_result(carry, ys, batched=True)
+    carry, ys = run_rounds(
+        alg, wrap_carry(alg, alg.init(spec.x0), telemetry, provenance),
+        spec.op_fn, active_rounds, views, track_convergence, 0, total,
+        telemetry=telemetry, provenance=provenance)
+    return collect_result(carry, ys, batched=True, telemetry=telemetry,
+                          provenance=provenance, nbrs=topo.nbrs)

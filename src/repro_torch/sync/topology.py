@@ -27,6 +27,11 @@ class Topology:
     mask: torch.Tensor   # bool  [N, P]
     rev: torch.Tensor    # int32 [N, P]
 
+    @property
+    def num_edges(self) -> int:
+        """Undirected edges: every one fills a slot at both ends."""
+        return int(self.mask.sum()) // 2
+
     def on(self, device) -> "Topology":
         """The same topology with its tables on ``device``."""
         return dataclasses.replace(self, nbrs=self.nbrs.to(device),

@@ -28,6 +28,8 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sync.scuttlebutt import DeltaCodec
+
 # Retwis byte sizes (paper §V-D): tweet ids, tweet content, node/user ids.
 ID_B, CONTENT_B, USER_B = 31, 270, 20
 FOLLOW_B = USER_B                 # follower entry: one user id
@@ -173,6 +175,56 @@ def gcounter_sweep_op(nodes: int) -> Callable:
         return torch.diag_embed(torch.diagonal(x, dim1=-2, dim2=-1) + 1)
 
     return op_fn
+
+
+# -- Scuttlebutt codecs (the fig7 / fig9 / fig10 baseline) ----------------------
+
+def scuttlebutt_gset_codec(nodes: int, events: int) -> DeltaCodec:
+    """Table I GSet as version vectors: delta (i, s) adds element
+    i·events + s − 1."""
+
+    def range_join(lo, hi):
+        s_idx = torch.arange(events, device=lo.device)
+        mask = (s_idx >= lo[..., :, None]) & (s_idx < hi[..., :, None])
+        return mask.reshape(tuple(lo.shape[:-1]) + (nodes * events,))
+
+    return DeltaCodec(range_join=range_join,
+                      delta_elems=torch.ones(nodes, dtype=torch.int32),
+                      state_size=lambda kv: kv.sum(-1, dtype=torch.int32))
+
+
+def scuttlebutt_gcounter_codec(nodes: int) -> DeltaCodec:
+    """Table I GCounter as version vectors: node i's entry is its
+    sequence number."""
+    return DeltaCodec(
+        range_join=lambda lo, hi: torch.where(hi > lo, hi, 0),
+        delta_elems=torch.ones(nodes, dtype=torch.int32),
+        state_size=lambda kv: (kv > 0).sum(-1, dtype=torch.int32))
+
+
+def scuttlebutt_gmap_codec(k_pct: int, nodes: int, keys: int) -> DeltaCodec:
+    """Table I GMap K% as version vectors, over the same key blocks as
+    :func:`gmap_block_op`: every key of node i's block holds i's sequence
+    number. The join over origins folds one [.., U] plane an origin (not
+    an [.., N, U] product: 3.8 GB at 4,194,304 keys and N = 15)."""
+    blocks_np = gmap_key_blocks(nodes, keys, k_pct)
+    per_node = int(blocks_np.sum(axis=1)[0])
+    blocks = _per_device(lambda dev: torch.as_tensor(blocks_np, device=dev))
+
+    def range_join(lo, hi):
+        ver = torch.where(hi > lo, hi, 0)                  # [.., N]
+        b = blocks(ver.device)
+        out = None
+        for i in range(nodes):
+            v = torch.where(b[i], ver[..., i, None], 0)
+            out = v if out is None else torch.maximum(out, v)
+        return out
+
+    return DeltaCodec(
+        range_join=range_join,
+        delta_elems=torch.full((nodes,), per_node, dtype=torch.int32),
+        state_size=lambda kv: ((kv > 0).to(torch.int32) * per_node).sum(
+            -1, dtype=torch.int32))
 
 
 # -- keyed store workloads (Retwis) -----------------------------------------------

@@ -608,3 +608,54 @@ def test_sweep_on_the_card_matches_the_cpu(sm90, algo):
             np.testing.assert_array_equal(getattr(got, nm),
                                           getattr(want, nm))
         assert torch.equal(got.final_x.cpu(), want.final_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+def test_mega_round_with_the_inbox_and_extracts(sm90, kind_name, rng):
+    """The flags the provenance path adds: ``ops.sync_round`` of a bprr
+    round (extracts) with ``want_inbox``, and of a state round (no buffer)
+    with ``want_inbox``, on the card against the CPU; then a small mega
+    bprr run with telemetry and provenance on the card against the CPU."""
+    from repro_torch.obs import ProvenanceSpec, TelemetrySpec
+
+    topo = topology.partial_mesh(15, 4)
+    b, n, u, p = 2, 15, 200, 4
+    d = both(rand_state(rng, kind_name, b, n, u), sm90)
+    x = both(rand_state(rng, kind_name, b, n, u), sm90)
+    buf = both(rand_state(rng, kind_name, p + 1, b, n, u), sm90)
+    act = both((rng.integers(0, 2, size=(b, n, p))
+                * topo.mask.numpy()).astype(np.int32), sm90)
+    dlv = both(rng.integers(0, 2, size=(b, n)).astype(np.int32), sm90)
+    kind = KINDS[kind_name][0]
+    for bf, dl, flags in ((buf, dlv, dict(per_origin=True, extracts=True)),
+                          ((None, None), (None, None), {})):
+        n0 = kstep.launches
+        got = ops.sync_round(d[1], x[1], bf[1], act[1], dl[1],
+                             nbrs=topo.nbrs.to(sm90), rev=topo.rev.to(sm90),
+                             kind=kind, want_inbox=True, **flags)
+        torch.cuda.synchronize()
+        assert kstep.launches == n0 + 1
+        want = ops.sync_round(d[0], x[0], bf[0], act[0], dl[0],
+                              nbrs=topo.nbrs, rev=topo.rev, kind=kind,
+                              want_inbox=True, **flags)
+        assert got[2] is not None
+        for nm, g, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                             "ssend", "cnt", "dsz"), got, want):
+            assert_equal(g, w, f"sync_round {nm} {flags}")
+    if kind_name != "max_i32":
+        return
+    lat, op = GSet(15 * 6).lattice, workloads.gset_unique_op(15, 6)
+    kw = dict(telemetry=TelemetrySpec(), provenance=ProvenanceSpec(),
+              faults=FaultSchedule.bernoulli(topo, 6, 0.1, seed=7))
+    want = simulate("bprr", lat, topo, op, 6, 4, device="cpu", **kw)
+    got = simulate("bprr", lat, topo, op, 6, 4, engine="mega", **kw)
+    for f in want.telemetry._fields[:6]:
+        np.testing.assert_array_equal(getattr(got.telemetry, f),
+                                      getattr(want.telemetry, f))
+    for f in want.provenance._fields[:10]:
+        g, w = getattr(got.provenance, f), getattr(want.provenance, f)
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), w), f
+        else:
+            np.testing.assert_array_equal(g, w)

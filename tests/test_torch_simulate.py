@@ -8,8 +8,8 @@
   must agree exactly.
 * Paper size: the port alone reproduces every committed total of
   ``benchmarks/results/fig7_transmission.json`` (GSet and GCounter, tree
-  and mesh, 100 active + 20 quiet rounds) and the GMap 10% / 100% rows of
-  ``fig8_gmap.json``.
+  and mesh, 100 active + 20 quiet rounds) and every GMap row (10%, 30%,
+  60%, 100%) of ``fig8_gmap.json``.
 """
 
 import functools
@@ -122,7 +122,7 @@ def paper_workload(bench):
 @pytest.mark.parametrize(
     "bench,topo_name,algo,row",
     paper_cells("fig7_transmission", ("gset", "gcounter"))
-    + paper_cells("fig8_gmap", ("gmap10", "gmap100")))
+    + paper_cells("fig8_gmap", ("gmap10", "gmap30", "gmap60", "gmap100")))
 def test_paper_results_reproduce(bench, topo_name, algo, row):
     lat, op = paper_workload(bench)
     r = simulate(algo, lat, ttopo.by_name(topo_name, 15, 4), op, 100, 20,

@@ -12,7 +12,8 @@
   weights, mixed-rank products.
 * Chunked runs, resume at every chunk boundary and after a kill, a refused
   resume of another run, ``object_metrics=False`` aggregates, the eager
-  validation, and the options that wait for later slices.
+  validation, the options that wait for later slices (shard, pad_to) and
+  the refusal of a malformed observability argument.
 * The committed ``fig11_retwis.json`` zipf 1.0 row at its default shape.
 """
 
@@ -389,9 +390,11 @@ def test_store_validation_and_unported_options():
     with pytest.raises(ValueError, match="layout"):
         simulate_store("bprr", lat, ttp, ok, T, layout="diagonal",
                        device="cpu")
-    for kw in ({"shard": True}, {"pad_to": 4}, {"telemetry": object()},
-               {"provenance": object()}, {"trace": object()}):
+    for kw in ({"shard": True}, {"pad_to": 4}):
         with pytest.raises(NotImplementedError):
+            simulate_store("bprr", lat, ttp, ok, T, device="cpu", **kw)
+    for kw in ({"telemetry": object()}, {"provenance": object()}):
+        with pytest.raises(TypeError):
             simulate_store("bprr", lat, ttp, ok, T, device="cpu", **kw)
 
 

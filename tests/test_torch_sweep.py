@@ -9,7 +9,8 @@
   its own tests hold), and once on ``fused`` for the packed bitor kind.
 * ``res.cell(b)`` equals the port's own single ``simulate`` of that cell.
 * Stacked initial states, ``stack_op``, the mixed-rank linear sum, the
-  spec's validation, and the options that wait for later slices.
+  spec's validation, the option that waits for a later slice (shard)
+  and the refusal of a malformed observability argument.
 """
 
 import functools
@@ -266,9 +267,10 @@ def test_sweep_spec_validation_and_unported_options():
     with pytest.raises(ValueError):           # schedule bound to other topo
         simulate_sweep("bprr", lat, ttp, spec, T, device="cpu")
     ok = SweepSpec(batch=2, op_fn=tW.gset_unique_sweep_op(N, T, SEEDS[:2]))
-    for kw in ({"shard": True}, {"telemetry": object()},
-               {"provenance": object()}):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        simulate_sweep("bprr", lat, ttp, ok, T, device="cpu", shard=True)
+    for kw in ({"telemetry": object()}, {"provenance": object()}):
+        with pytest.raises(TypeError):
             simulate_sweep("bprr", lat, ttp, ok, T, device="cpu", **kw)
     single = simulate("bprr", lat, ttp, tW.gset_unique_op(N, T), T,
                       device="cpu")
