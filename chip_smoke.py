@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, on one card
+    python3 chip_smoke.py --cards    # phase 9 (c) over several cards alone
 
 Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
 ``src/repro_torch/csrc`` on first use. Phases, each of which must pass:
@@ -89,15 +90,39 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    setting with telemetry and ``object_metrics=False``, timed against the
    run without, checkpointed and resumed; its trace is written beside the
    JSON log (``obs_trace.json``, ``obs_trace.jsonl``);
-9. profile: ``torch.profiler`` over three GMap rounds per kernel engine
+9. the gossip runtime, padding and shards (each part's seconds printed;
+   (a) and (b) launch no kernel and run right after phase 3, before any
+   profiler window, beside a probe of the host's launch cost that is
+   repeated after the last profile; (c) runs after phase 8 with the
+   launch counters zeroed again): (a) ``repro_torch.elastic_churn`` on the
+   card, equal to its CPU run and to the JAX example's numbers (suspected
+   at round 10, dp_size 11, a 78-element bootstrap, checkpoint 19, 142,336
+   tokens, 5,815 novel / 13,316 redundant); (b) a 256-node control plane
+   (the 16 × 16 production mesh; membership, heartbeats, a GCounter(512),
+   a CheckpointRegistry(1024), a ShardLedger(1024)) with 8 nodes down in
+   rounds 6–16 under 3% loss, drained until every store converged, on the
+   card and, at the same time, on the CPU in a worker process: equal value
+   for value, 256 members, progress 512 × the up node-rounds, checkpoint
+   19; s/round on both; (c) the committed Retwis store with ``pad_to=5``,
+   in five blocks on the card (``["cuda:0"] * 5``) and with ``shard=True``
+   over the card (the unsharded run's launches), each equal to the
+   unpadded run on three engines; the paper-setting store in four blocks
+   with ``object_metrics=False``, its [4, T] partials equal to phase 6's
+   per-object run summed by block, ms/round beside phase 6's; with
+   several cards visible, the committed store over every card
+   (``device="cuda"``) equal to the unpadded run, and the paper store in
+   one block a card against the same blocks on card 0 (equal partials,
+   ms/round of both; ``--cards`` runs this part alone);
+10. profile: ``torch.profiler`` over three GMap rounds per kernel engine
    (bprr; on ``mega`` also with telemetry and provenance), three LWWMap
    rounds (reference) and three digest_driven rounds
    on ``fused`` — device time by kernel and the device's busy share; a
    profiler failure fails the run.
 
 Phases 4–5 are the sync engines' main path, phase 6 its batched form,
-phase 7 the lex-pair one (the elementwise kernels' users) and phase 8 the
-observability path: the launch counters are zeroed before and read after
+phase 7 the lex-pair one (the elementwise kernels' users), phase 8 the
+observability path and phase 9 the sharded one (the runtime launches no
+kernel): the launch counters are zeroed before and read after
 each. Prints
 per-phase seconds, one ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -871,14 +896,17 @@ class Launches:
         self.check = check
         self.total = {name: 0 for name in SOURCES}
 
-    def run(self, tag, engine, algo, rounds, fn, configs=1):
+    def run(self, tag, engine, algo, rounds, fn, configs=1, blocks=1):
+        """``fn()``, whose run has ``blocks`` device blocks of ``configs``
+        configs each (a sharded store: each block's rounds launch on
+        their own)."""
         from repro_torch import kernels
 
         before = kernels.launch_counts()
         r = fn()
         after = kernels.launch_counts()
         used = {k: after[k] - before[k] for k in after}
-        want = expected_launches(engine, algo, rounds, configs)
+        want = expected_launches(engine, algo, rounds * blocks, configs)
         self.check(used == want, f"{tag}: launches {used}, expected {want}")
         for k, v in want.items():
             self.total[k] += v
@@ -1112,7 +1140,7 @@ def fault_phase(check, launches, log, singles):
 
 
 def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
-              runs=SCALE_RUNS):
+              runs=SCALE_RUNS, blocks=1):
     """``runs`` runs, each timed on the host clock around a synchronised
     device, after a one-round run of the same configuration (which builds
     the op's tables and grows the allocator's pool); every run's launches
@@ -1121,7 +1149,7 @@ def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
     import torch
 
     launches.run(f"{tag} warm-up", engine, algo, 1, lambda: simulate_fn(1, 0),
-                 configs)
+                 configs, blocks)
     gc.collect()                 # what earlier phases left in cycles goes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1129,7 +1157,8 @@ def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
     for _ in range(runs):
         r = None                           # one result alive at a time
         t0 = time.perf_counter()
-        r = launches.run(tag, engine, algo, rounds, simulate_fn, configs)
+        r = launches.run(tag, engine, algo, rounds, simulate_fn, configs,
+                         blocks)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / rounds)
     return (r, (statistics.median(times), min(times), max(times)),
@@ -1573,7 +1602,10 @@ def retwis_paper_phase(check, launches, log):
     and bprr on mega,
     fused and reference. All engines equal, 8 sampled objects equal to
     their own ``simulate``, every object converged after the drain; ms per
-    round, peak memory and the round's byte bound."""
+    round, peak memory and the round's byte bound. Returns the bprr
+    ``mega`` run's per-object metrics (host arrays) and its median ms per
+    round."""
+    import numpy as np
     import torch
 
     from repro_torch.sync import (cluster_uniform, simulate, simulate_store,
@@ -1584,7 +1616,7 @@ def retwis_paper_phase(check, launches, log):
     topo = topology.partial_mesh(nodes, 4)
     lat, spec, counts = retwis_store(1.0, nodes, objects, slots, active, ops)
     plane = objects * nodes * slots * 4
-    rows, t0 = [], time.perf_counter()
+    rows, t0, kept = [], time.perf_counter(), {}
     for algo in ("classic", "bprr"):
         k = 5 if algo == "bprr" else 1
         b_ms = ms_bound((2 * k + 3) * plane)
@@ -1599,6 +1631,11 @@ def retwis_paper_phase(check, launches, log):
                                   engine, ms, b_ms, peak, r))
             print_scale(tag, ms, b_ms, peak, r)
             runs[engine] = r
+            if algo == "bprr" and engine == "mega":
+                # phase 9 holds its four-block run to these
+                kept = {"ms": ms[0], "metrics": {
+                    f: np.asarray(getattr(r.sim, f)) for f in
+                    ("tx", "mem", "cpu", "max_mem_node")}}
         for engine in ("fused", "reference"):
             check(same_run(runs["mega"], runs[engine]),
                   f"retwis paper {algo}: {engine} differs from mega")
@@ -1627,6 +1664,7 @@ def retwis_paper_phase(check, launches, log):
                                        engine=e), objects))
     wall = time.perf_counter() - t0
     log["retwis_paper"] = {"rows": rows, "profile": prof, "wall_s": wall}
+    return kept
 
 
 def million_phase(check, launches, log):
@@ -2584,6 +2622,346 @@ def obs_phase(check, launches, log):
     return trace
 
 
+# -- phase 9: the gossip runtime, padding and shards ---------------------------
+
+# The 256-node control plane: the 16 x 16 production mesh
+# (src/repro/launch/mesh.py:23), node slots for its two-pod mesh (512), and
+# DataConfig.num_shards (1,024) ledger shards and registry buckets; 8 nodes
+# (ids 7 + 32k) down in rounds 6-16 under 3% loss (seed 11)
+FLEET_256 = dict(nodes=256, max_nodes=512,
+                 dead=tuple(7 + 32 * k for k in range(8)), registry=1024,
+                 ledger=1024, drain=None)
+# the JAX example's numbers (examples/elastic_churn.py)
+CHURN_EXPECT = {"detected": {7: 10}, "plans": [(10, (7,), 11)],
+                "bootstrap": [78], "latest_step": 19, "progress": 142_336,
+                "rx_novel": 5_815, "rx_redundant": 13_316}
+FLEET_KEYS = ("detected", "plans", "bootstrap", "latest_step", "progress",
+              "rx_novel", "rx_redundant", "sent_elements", "converged",
+              "drain_rounds", "up_node_rounds")
+
+
+def same_fleet(a, b) -> bool:
+    """Two fleet runs agree in every count and every final state."""
+    import numpy as np
+
+    return all(a[k] == b[k] for k in FLEET_KEYS) and \
+        a["final"].keys() == b["final"].keys() and all(
+            np.array_equal(a["final"][s], b["final"][s]) for s in a["final"])
+
+
+def runtime_churn(check, log):
+    """(a) The elastic-churn example on the card, equal to its CPU run in
+    this process and to the JAX example's numbers."""
+    from repro_torch.elastic_churn import Fleet, run
+
+    card = run(Fleet(), "cuda", verbose=False)
+    cpu = run(Fleet(), "cpu", verbose=False)
+    check(same_fleet(card, cpu), "elastic churn: the card differs from the "
+                                 "CPU")
+    got = {k: card[k] for k in CHURN_EXPECT}
+    check(got == CHURN_EXPECT, f"elastic churn: {got} vs {CHURN_EXPECT}")
+    print(f"elastic churn: suspected at round {card['detected']}, plan "
+          f"{card['plans']}, bootstrap {card['bootstrap']}, checkpoint "
+          f"{card['latest_step']}, progress {card['progress']:,}, "
+          f"{card['rx_novel']:,} novel / {card['rx_redundant']:,} redundant; "
+          f"{card['s_per_round']:.4f} s/round on the card, "
+          f"{cpu['s_per_round']:.4f} on the CPU", flush=True)
+    log["churn"] = {k: card[k] for k in ("s_per_round", "seconds")} | {
+        "cpu_s_per_round": cpu["s_per_round"]}
+
+
+def runtime_fleet(check, log):
+    """(b) The 256-node control plane (membership, heartbeats, a progress
+    GCounter, the checkpoint registry and a shard ledger) for 24 rounds of
+    churn and loss, then a fault-free drain until every store converged;
+    on the card, and on the CPU at the same time in a worker process.
+    Equal value for value; 256 members, progress 512 x the up node-rounds,
+    the newest checkpoint 19."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.elastic_churn import ROUNDS, TOKENS, Fleet, run
+
+    fleet = Fleet(**FLEET_256)
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        fut = ex.submit(run, fleet, "cpu", False)
+        card = run(fleet, "cuda", verbose=False)
+        cpu = fut.result()
+    check(same_fleet(card, cpu), "fleet 256: the card differs from the CPU")
+    members = card["final"]["members"].sum(axis=1)
+    check(bool((members == fleet.nodes).all()),
+          f"fleet 256: member counts {sorted(set(members.tolist()))}")
+    check(card["progress"] == TOKENS * card["up_node_rounds"],
+          f"fleet 256: progress {card['progress']} vs "
+          f"{TOKENS} x {card['up_node_rounds']} up node-rounds")
+    check(card["latest_step"] == 19, f"fleet 256: newest checkpoint "
+                                     f"{card['latest_step']}")
+    check(all(card["converged"].values()), f"fleet 256: {card['converged']}")
+    claimed = int((card["final"]["ledger"][0] > 0).sum())
+    drained = card["drain_rounds"]
+    print(f"fleet 256: {ROUNDS + drained} rounds ({drained} to "
+          f"drain), detections {card['detected']}, plans "
+          f"{card['plans']}, bootstraps {card['bootstrap']}, progress "
+          f"{card['progress']:,}, {claimed} shards claimed, "
+          f"{card['rx_novel']:,} novel / {card['rx_redundant']:,} redundant, "
+          f"{card['sent_elements']:,} sent; {card['s_per_round']:.4f} s/round "
+          f"on the card, {cpu['s_per_round']:.4f} on the CPU", flush=True)
+    log["fleet_256"] = {
+        k: card[k] for k in ("s_per_round", "seconds", "drain_rounds",
+                             "rx_novel", "rx_redundant", "sent_elements",
+                             "progress")} | {
+        "cpu_s_per_round": cpu["s_per_round"], "cpu_seconds": cpu["seconds"],
+        "detected": {str(k): v for k, v in card["detected"].items()},
+        "plans": card["plans"], "claimed": claimed}
+
+
+def shard_committed(check, launches, log):
+    """(c) The committed Retwis store (mesh16 d4, 96 objects, 32 slots, 40
+    rounds, bprr) on each engine: ``pad_to=5`` (100 objects), five blocks
+    on the card (``["cuda:0"] * 5``: 100 objects in blocks of 20) and
+    ``shard=True`` over the card (one block, the unsharded run's launches)
+    all equal to the unpadded run."""
+    from repro_torch import kernels
+    from repro_torch.sync import ENGINES, simulate_store, topology
+
+    nodes, objects, slots, rounds, ops = 16, 96, 32, 40, 6
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, rounds, ops)
+
+    def store(**kw):
+        return simulate_store("bprr", lat, topo, spec, rounds, **kw)
+
+    for engine in ENGINES:
+        tag = f"retwis committed {engine}"
+        before = kernels.launch_counts()
+        base = launches.run(tag, engine, "bprr", rounds,
+                            lambda: store(engine=engine), objects)
+        mid = kernels.launch_counts()
+        one = launches.run(f"{tag} shard=True", engine, "bprr", rounds,
+                           lambda: store(engine=engine, shard=True,
+                                         device="cuda"), objects)
+        after = kernels.launch_counts()
+        check({k: mid[k] - before[k] for k in mid}
+              == {k: after[k] - mid[k] for k in mid},
+              f"{tag}: shard=True on one card launched other kernels")
+        check(same_run(base, one), f"{tag}: shard=True differs")
+        padded = launches.run(f"{tag} pad_to=5", engine, "bprr", rounds,
+                              lambda: store(engine=engine, pad_to=5), 100)
+        check(same_run(base, padded), f"{tag}: pad_to=5 differs")
+        five = launches.run(f"{tag} 5 blocks", engine, "bprr", rounds,
+                            lambda: store(engine=engine, shard=True,
+                                          device=["cuda:0"] * 5), 20, 5)
+        check(same_run(base, five), f"{tag}: five blocks differ")
+        check(five.final_x.shape[0] == objects and
+              five.final_x.device.type == "cuda",
+              f"{tag}: five blocks' final states {tuple(five.final_x.shape)}"
+              f" on {five.final_x.device}")
+    print("retwis committed: pad_to=5, 5 blocks and shard=True equal the "
+          "unpadded run on 3 engines", flush=True)
+
+
+def shard_paper(check, launches, log, kept):
+    """(c) The paper-setting Retwis store (mesh50, 30,000 objects, 64
+    slots, bprr, ``mega``) in four blocks of 7,500 on the card with
+    ``object_metrics=False``: its [4, T] partials equal phase 6's
+    per-object run reduced over each block; ms per round beside phase 6's
+    unsharded run (3 runs after a one-round warm-up) and a profile of 3
+    rounds."""
+    import numpy as np
+
+    from repro_torch.sync import simulate_store, topology
+
+    nodes, objects, slots, active, quiet, ops = RETWIS_PAPER
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, active, ops)
+    tag = "retwis paper bprr mega 4 blocks"
+    r, ms, peak = scale_run(
+        launches, tag, "mega", "bprr", active + quiet,
+        lambda a=active, q=quiet: simulate_store(
+            "bprr", lat, topo, spec, a, q, engine="mega", shard=True,
+            device=["cuda:0"] * 4, object_metrics=False),
+        objects // 4, runs=3, blocks=4)
+    if not check(bool(kept), f"{tag}: phase 6 kept no per-object run"):
+        return
+    ok = r.sim.tx.shape == (4, active + quiet)
+    for f, a in kept["metrics"].items():
+        blocks = a.reshape(4, objects // 4, -1)
+        want = blocks.max(1) if f == "max_mem_node" else blocks.sum(1)
+        ok &= np.array_equal(getattr(r.sim, f), want)
+    check(ok, f"{tag}: the [4, T] partials differ from phase 6's per-object "
+              f"run summed by block")
+    med, lo, hi = ms
+    print(f"{tag}: {med:.3f} ms/round (median of 3, {lo:.3f}-{hi:.3f}) "
+          f"against {kept['ms']:.3f} unsharded (phase 6); peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del r
+    prof = profile_rounds(check, tag, lambda: launches.run(
+        f"{tag} profile", "mega", "bprr", 3, lambda: simulate_store(
+            "bprr", lat, topo, spec, 3, 0, engine="mega", shard=True,
+            device=["cuda:0"] * 4, object_metrics=False), objects // 4, 4))
+    log["retwis_paper_4_blocks"] = {"ms_per_round": med, "min": lo,
+                                    "max": hi, "unsharded_ms": kept["ms"],
+                                    "max_memory_allocated": peak,
+                                    "profile": prof}
+
+
+def sync_cards():
+    """Wait for every card (``torch.cuda.synchronize()`` waits for the
+    current one only)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def shard_cards(check, launches, log):
+    """(c) With several cards (skipped on one): the committed Retwis store
+    with ``shard=True, device="cuda"`` (one block a card) on each engine
+    equal to the unpadded run, its final states gathered on card 0; the
+    paper-setting store (``mega``, ``object_metrics=False``) in one block
+    a card against the same blocks all on card 0: equal [k, T] partials,
+    every card used, and ms per round of both (median of 3 runs after a
+    one-round warm-up, every card synchronised)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh
+    from repro_torch.sync import ENGINES, simulate_store, topology
+
+    k = torch.cuda.device_count()
+    if k < 2:
+        print("several cards: one card visible, part skipped", flush=True)
+        return
+    nodes, objects, slots, rounds, ops = 16, 96, 32, 40, 6
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, rounds, ops)
+    per = mesh.padded_size(objects, k) // k
+    for engine in ENGINES:
+        tag = f"retwis committed {engine} {k} cards"
+        base = launches.run(f"{tag} unsharded", engine, "bprr", rounds,
+                            lambda: simulate_store("bprr", lat, topo, spec,
+                                                   rounds, engine=engine),
+                            objects)
+        got = launches.run(tag, engine, "bprr", rounds,
+                           lambda: simulate_store(
+                               "bprr", lat, topo, spec, rounds,
+                               engine=engine, shard=True, device="cuda"),
+                           per, k)
+        check(same_run(base, got), f"{tag}: differs from the unsharded run")
+        check(got.final_x.device == torch.device("cuda", 0),
+              f"{tag}: final states on {got.final_x.device}")
+
+    nodes, objects, slots, active, quiet, ops = RETWIS_PAPER
+    topo = topology.partial_mesh(nodes, 4)
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, active, ops)
+    per = mesh.padded_size(objects, k) // k
+    total = active + quiet
+    out = {"cards": k}
+    runs = {}
+    for name, devs in (("card 0", ["cuda:0"] * k), ("cards", "cuda")):
+        tag = f"retwis paper bprr mega {k} blocks on {name}"
+
+        def run(a=active, q=quiet, devs=devs):
+            return simulate_store("bprr", lat, topo, spec, a, q,
+                                  engine="mega", shard=True, device=devs,
+                                  object_metrics=False)
+
+        launches.run(f"{tag} warm-up", "mega", "bprr", 1,
+                     lambda: run(1, 0), per, k)
+        gc.collect()
+        sync_cards()
+        for i in range(k):
+            torch.cuda.reset_peak_memory_stats(i)
+        times, r = [], None
+        for _ in range(3):
+            r = None
+            t0 = time.perf_counter()
+            r = launches.run(tag, "mega", "bprr", total, run, per, k)
+            sync_cards()
+            times.append((time.perf_counter() - t0) * 1e3 / total)
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(k)]
+        runs[name] = r.sim
+        med = statistics.median(times)
+        out[name] = {"ms_per_round": med, "min": min(times),
+                     "max": max(times), "max_memory_allocated": peaks}
+        print(f"{tag}: {med:.3f} ms/round (median of 3, {min(times):.3f}-"
+              f"{max(times):.3f}); peak GiB by card "
+              f"{[round(b / 2**30, 2) for b in peaks]}", flush=True)
+        if name == "cards":
+            check(all(b > 0 for b in peaks),
+                  f"{tag}: a card held nothing: {peaks}")
+        del r
+    check(runs["cards"].tx.shape == (k, total) and all(
+        np.array_equal(getattr(runs["cards"], f), getattr(runs["card 0"], f))
+        for f in ("tx", "mem", "cpu", "max_mem_node")),
+        f"retwis paper {k} cards: the [k, T] partials differ from the "
+        f"same blocks on card 0")
+    out["speedup"] = out["card 0"]["ms_per_round"] / \
+        out["cards"]["ms_per_round"]
+    print(f"retwis paper {k} blocks: {out['speedup']:.3f}x faster on {k} "
+          f"cards than on card 0", flush=True)
+    log["retwis_several_cards"] = out
+
+
+def timed_parts(log, parts):
+    """Run ``(name, fn, args)`` parts, each one's seconds printed and kept
+    under ``log["phase9_s"]``."""
+    secs = log.setdefault("phase9_s", {})
+    for name, fn, args in parts:
+        t = time.perf_counter()
+        fn(*args)
+        secs[name] = time.perf_counter() - t
+        print(f"phase 9 {name}: {secs[name]:.1f} s", flush=True)
+
+
+def runtime_phase(check, log):
+    """Phase 9 (a) elastic churn and (b) the 256-node control plane. The
+    runtime is host-bound and launches no kernel; the smoke runs it before
+    any ``torch.profiler`` window, so that no profiler state stays behind
+    in the launches it times (:func:`launch_probe`)."""
+    from repro_torch import kernels
+
+    before = kernels.launch_counts()
+    timed_parts(log, (("a_churn", runtime_churn, (check, log)),
+                      ("b_fleet_256", runtime_fleet, (check, log))))
+    check(kernels.launch_counts() == before,
+          "phase 9: the runtime launched a kernel")
+
+
+def shard_phase(check, launches, log, kept):
+    """Phase 9 (c): padding and shards on the card."""
+    timed_parts(log, (("c_committed", shard_committed,
+                       (check, launches, log)),
+                      ("c_paper", shard_paper,
+                       (check, launches, log, kept)),
+                      ("c_cards", shard_cards, (check, launches, log))))
+
+
+def launch_probe(tag, log):
+    """The host's cost of one small PyTorch launch, and of a launch
+    followed by a device read (µs, mean of 20,000 and 5,000): what bounds
+    the runtime's rounds. Probed before any profiler window and after the
+    last one."""
+    import torch
+
+    x = torch.zeros(512, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        y = torch.maximum(x, x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5000):
+        int(y.sum())
+    t2 = time.perf_counter()
+    out = {"launch_us": (t1 - t0) / 20000 * 1e6,
+           "launch_read_us": (t2 - t1) / 5000 * 1e6}
+    log.setdefault("launch_probe", {})[tag] = out
+    print(f"launch probe {tag}: {out['launch_us']:.2f} µs a launch, "
+          f"{out['launch_read_us']:.2f} µs a reduction read back",
+          flush=True)
+
+
 # -- driver ----------------------------------------------------------------------
 
 SOURCES = {
@@ -2610,12 +2988,54 @@ SYNC_KERNELS = ("round_step", "round_recv", "buffer_fold", "digest_blocks",
 ELEMENTWISE = ("join", "delta_extract", "lex_join_delta")
 
 
+def cards_main() -> int:
+    """``--cards``: the build and phase 9 (c)'s several-card part alone,
+    on every visible card, with the launch counters checked; exits
+    non-zero if a check fails or fewer than two cards are visible."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    check = Checks()
+    smi = nvidia_smi()
+    print(f"cards: {torch.cuda.device_count()}\n{smi}", flush=True)
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two cards or more", file=sys.stderr)
+        return 1
+    _build.build_all()
+    kernels.reset_launches()
+    expect = Launches(check)
+    log = {"nvidia_smi": smi}
+    t0 = time.perf_counter()
+    shard_cards(check, expect, log)
+    check(kernels.launch_counts() == expect.total,
+          f"several-card launches {kernels.launch_counts()}, expected "
+          f"{expect.total}")
+    print(f"several cards: {time.perf_counter() - t0:.1f} s", flush=True)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_cards.json").write_text(json.dumps(log, indent=1))
+    if check.failed:
+        print(f"chip_smoke --cards: {len(check.failed)} checks failed",
+              file=sys.stderr)
+        return 1
+    print(json.dumps(log["retwis_several_cards"]))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--cards"]:
+        return cards_main()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (takes none, "
+              f"or --cards)", file=sys.stderr)
+        return 2
     from repro_torch import kernels
     from repro_torch.kernels import _build
 
@@ -2670,6 +3090,11 @@ def main() -> int:
     store_shapes = timed("store_kernel_timings", store_kernel_timings, check,
                          dev, log)
 
+    # 9 (a, b). the gossip runtime (host-bound, no kernel), before any
+    # profiler window
+    launch_probe("before any profiler", log)
+    timed("runtime", runtime_phase, check, log)
+
     # 4 + 5. the sync engines' main path, with the launch counters zeroed
     # around it
     kernels.reset_launches()
@@ -2693,7 +3118,7 @@ def main() -> int:
     timed("sweeps", sweep_phase, check, expect6, log, singles)
     del singles
     timed("fig11_retwis", retwis_phase, check, expect6, log)
-    timed("retwis_paper", retwis_paper_phase, check, expect6, log)
+    kept = timed("retwis_paper", retwis_paper_phase, check, expect6, log)
     timed("store_1m", million_phase, check, expect6, log)
     launches6 = kernels.launch_counts()
     check(launches6 == expect6.total, f"batched main-path launches "
@@ -2732,7 +3157,22 @@ def main() -> int:
     for name in SYNC_KERNELS:
         check(launches8[name] > 0, f"{name} was never launched on the "
                                    f"observability path")
+    # 9 (c). padding and shards, with the counters zeroed around it
+    kernels.reset_launches()
+    expect9 = Launches(check)
+    timed("shards", shard_phase, check, expect9, log, kept)
+    del kept
+    print(f"phase 9: {phase_s['runtime'] + phase_s['shards']:.1f} s "
+          f"(runtime {phase_s['runtime']:.1f}, shards "
+          f"{phase_s['shards']:.1f})", flush=True)
+    launches9 = kernels.launch_counts()
+    check(launches9 == expect9.total, f"sharded-path launches {launches9}, "
+                                      f"expected {expect9.total}")
+    for name in ("round_step", "round_recv", "buffer_fold"):
+        check(launches9[name] > 0, f"{name} was never launched on the "
+                                   f"sharded path")
     timed("profile", profile_phase, check, log)
+    launch_probe("after the profiles", log)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -2741,13 +3181,14 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": launches[name] + launches6[name]
-               + launches8[name],
+               + launches8[name] + launches9[name],
                "max_abs_err": err, "equal": err == 0, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms,
                "launches_by_path": {"unbatched": launches[name],
                                     "batched": launches6[name],
-                                    "observability": launches8[name]}}
+                                    "observability": launches8[name],
+                                    "sharded": launches9[name]}}
         if name in store_shapes:
             row["store_shapes"] = store_shapes[name]
         rows.append(row)

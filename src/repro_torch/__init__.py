@@ -5,8 +5,10 @@ algorithms (state, classic, bp, rr, bprr) and the resync modes, under fault
 schedules, over the dense lattices (GSet, GCounter, GMap, BitGSet) and the
 tuple-state ones (LWWMap, LexCounter, PNCounter, products, linear sums) —
 on an NVIDIA H100 through eight hand-written CUDA kernels (``kernels/``,
-sources in ``csrc/``), bit-identical to the JAX package. Entry points run
-on the card unless the caller passes ``device="cpu"``
-(``python -m repro_torch.quickstart`` takes ``--device cpu``). The package
-imports torch, numpy and the standard library only.
+sources in ``csrc/``), bit-identical to the JAX package, with sweeps and
+stores in device blocks (``launch.mesh``) and the control-plane gossip
+runtime (``runtime``). Entry points run on the card unless the caller
+passes ``device="cpu"`` (``python -m repro_torch.quickstart`` and
+``python -m repro_torch.elastic_churn`` take ``--device cpu``). The
+package imports torch, numpy and the standard library only.
 """

@@ -1,5 +1,7 @@
-"""Chunk-boundary checkpoints of the port's runs (PyTorch)."""
+"""Chunk-boundary checkpoints of the port's runs and the replicated
+checkpoint registry (PyTorch)."""
 
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import (Checkpointer,
+                                                CheckpointRegistry)
 
-__all__ = ["Checkpointer"]
+__all__ = ["CheckpointRegistry", "Checkpointer"]

@@ -14,8 +14,10 @@ instead of restoring garbage. Tensor leaves come back on the template
 leaf's device, numpy leaves as numpy arrays.
 
 The format is the port's own: the JAX package's ``arrays.npz`` bundles are
-not read. The replicated checkpoint registry (``CheckpointRegistry``) waits
-for ROADMAP A6.
+not read.
+
+:class:`CheckpointRegistry` is the replicated registry of durable steps
+that the gossip runtime synchronises (a GMap on the node's device).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import GMap
 
 
 def _flatten(tree, path: str = "") -> list:
@@ -168,3 +172,35 @@ class Checkpointer:
         return sorted(int(p.name.split("_")[1])
                       for p in self.dir.glob("step_*")
                       if (p / "manifest.json").exists())
+
+
+class CheckpointRegistry:
+    """Replicated registry: GMap slot per step bucket, max-join versions,
+    on ``device`` (the card unless ``device="cpu"``).
+
+    ``announce(step)`` produces the optimal delta to gossip; ``latest_step``
+    is a pure read of the local replica. Bucketing: step → slot step %
+    capacity with value = step + 1 (monotone), so the newest durable step
+    wins everywhere without coordination.
+    """
+
+    def __init__(self, capacity: int = 1024, device="cuda"):
+        # sync.store imports this module: resolve_device comes late
+        from repro_torch.sync.simulator import resolve_device
+
+        self.gmap = GMap(num_keys=capacity)
+        self.state = self.gmap.lattice.bottom(resolve_device(device))
+        self.capacity = capacity
+
+    def announce(self, step: int):
+        delta = torch.zeros_like(self.state)
+        delta[step % self.capacity] = step + 1
+        self.state = self.gmap.lattice.join(self.state, delta)
+        return delta
+
+    def merge(self, delta):
+        self.state = self.gmap.lattice.join(self.state, delta)
+
+    def latest_step(self) -> Optional[int]:
+        m = int(self.state.max())
+        return m - 1 if m > 0 else None

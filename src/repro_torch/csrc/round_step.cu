@@ -496,42 +496,47 @@ __global__ void __launch_bounds__(PM ? 512 : 1024) round_step_kernel(
   }
 }
 
-static int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
-  }
-  return sms;
+constexpr int MAX_DEVICES = 64;
+
+static int sm_count(int dev) {
+  static int sms[MAX_DEVICES] = {};
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
 }
 
 // Blocks per config of a launch: the tiles, or the resident blocks of the
-// card spread over the B configs, whichever is fewer (>= 1); < 0 an error.
-// The resident count is cached per instantiation for the last (threads,
-// shared bytes): the paper-size rounds launch thousands of times with one
-// plan.
+// current card spread over the B configs, whichever is fewer (>= 1); < 0 an
+// error. The shared-memory attribute and the resident count belong to a
+// card: they are cached per instantiation and card for the last (threads,
+// shared bytes), since the paper-size rounds launch thousands of times with
+// one plan and a sharded run alternates between cards.
 template <class T, class Op, int VB, int PM>
 static long long grid_x(int threads, long long smem_bytes, long long tiles,
                         int nb) {
-  static int last_threads = -1, per_sm = 0;
-  static long long last_smem = -1;
-  if (threads != last_threads || smem_bytes != last_smem) {
+  static int last_threads[MAX_DEVICES] = {}, per_sm[MAX_DEVICES] = {};
+  static long long last_smem[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  if (dev < 0 || dev >= MAX_DEVICES)
+    return -static_cast<long long>(cudaErrorInvalidDevice);
+  if (threads != last_threads[dev] || smem_bytes != last_smem[dev]) {
     auto kernel = round_step_kernel<T, Op, VB, PM>;
-    cudaError_t err = cudaFuncSetAttribute(
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return -static_cast<long long>(err);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, threads, (size_t)smem_bytes);
+        &per_sm[dev], kernel, threads, (size_t)smem_bytes);
     if (err != cudaSuccess) return -static_cast<long long>(err);
-    if (per_sm < 1)
+    if (per_sm[dev] < 1)
       return -static_cast<long long>(cudaErrorInvalidConfiguration);
-    last_threads = threads;
-    last_smem = smem_bytes;
+    last_threads[dev] = threads;
+    last_smem[dev] = smem_bytes;
   }
-  long long resident = (long long)per_sm * sm_count();
+  long long resident = (long long)per_sm[dev] * sm_count(dev);
   long long g = (resident + nb - 1) / nb;
   if (g > tiles) g = tiles;
   return g < 1 ? 1 : g;

@@ -14,6 +14,7 @@ elementwise arithmetic of the plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -129,8 +130,16 @@ def check_launch(lib, err: int, what: str) -> None:
             f"{what} launch failed: {lib.cuda_error_string(err).decode()}")
 
 
-def stream_handle() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+@contextlib.contextmanager
+def launching(device: torch.device):
+    """Make ``device`` the current card for a launch and give the handle of
+    its current stream. The launchers query and configure the current card
+    and launch on the stream they are given, so a kernel whose tensors lie
+    on another card than the caller's current one (a block of a sharded
+    run) still runs on that card, in order with what PyTorch queued
+    there."""
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def ptr(t) -> ctypes.c_void_p:

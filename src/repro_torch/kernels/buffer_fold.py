@@ -52,9 +52,10 @@ def _launch(buf: torch.Tensor, kind: str) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = B.library("buffer_fold", _SIGNATURE)
-    err = lib.buffer_fold_launch(B.KIND_CODES[(kind, buf.dtype)],
-                                 B.ptr(buf), B.ptr(out), k,
-                                 buf[0].numel(), B.stream_handle())
+    with B.launching(buf.device) as stream:
+        err = lib.buffer_fold_launch(B.KIND_CODES[(kind, buf.dtype)],
+                                     B.ptr(buf), B.ptr(out), k,
+                                     buf[0].numel(), stream)
     B.check_launch(lib, err, "buffer_fold")
     launches += 1
     return out

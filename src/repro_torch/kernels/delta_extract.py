@@ -36,9 +36,10 @@ def _launch(d, x, kind: str):
     s, xj = torch.empty_like(d), torch.empty_like(d)
     count = torch.zeros((), dtype=torch.int32, device=d.device)
     lib = B.library("delta_extract", _SIGNATURE)
-    err = lib.delta_extract_launch(
-        B.KIND_CODES[(kind, d.dtype)], B.ptr(d), B.ptr(x), B.ptr(s),
-        B.ptr(xj), B.ptr(count), d.numel(), B.stream_handle())
+    with B.launching(d.device) as stream:
+        err = lib.delta_extract_launch(
+            B.KIND_CODES[(kind, d.dtype)], B.ptr(d), B.ptr(x), B.ptr(s),
+            B.ptr(xj), B.ptr(count), d.numel(), stream)
     B.check_launch(lib, err, "delta_extract")
     launches += 1
     return s, xj, count

@@ -85,10 +85,10 @@ def _launch(x, block_elems: int, kind: str):
     out = torch.empty((m, nb, 3), dtype=torch.int32, device=x.device)
     pl = plan(m, u, block_elems, x.element_size(), x.data_ptr() % 16 == 0)
     lib = B.library("digest_blocks", _SIGNATURE)
-    err = lib.digest_blocks_launch(B.KIND_CODES[(kind, x.dtype)], B.ptr(x),
-                                   B.ptr(out), m, u, block_elems,
-                                   int(pl.vector), pl.grid_x, pl.grid_y,
-                                   B.stream_handle())
+    with B.launching(x.device) as stream:
+        err = lib.digest_blocks_launch(
+            B.KIND_CODES[(kind, x.dtype)], B.ptr(x), B.ptr(out), m, u,
+            block_elems, int(pl.vector), pl.grid_x, pl.grid_y, stream)
     B.check_launch(lib, err, "digest_blocks")
     launches += 1
     last_launch = pl

@@ -31,8 +31,9 @@ def _launch(a, b, kind: str):
     B.check_cuda("join", a, b)
     out = torch.empty_like(a)
     lib = B.library("join", _SIGNATURE)
-    err = lib.join_launch(B.KIND_CODES[(kind, a.dtype)], B.ptr(a), B.ptr(b),
-                          B.ptr(out), a.numel(), B.stream_handle())
+    with B.launching(a.device) as stream:
+        err = lib.join_launch(B.KIND_CODES[(kind, a.dtype)], B.ptr(a),
+                              B.ptr(b), B.ptr(out), a.numel(), stream)
     B.check_launch(lib, err, "join")
     launches += 1
     return out

@@ -41,9 +41,10 @@ def _launch(ta, va, tb, vb):
     outs = [torch.empty_like(ta) for _ in range(4)]
     count = torch.zeros((), dtype=torch.int32, device=ta.device)
     lib = B.library("lex_join", _SIGNATURE)
-    err = lib.lex_join_delta_launch(
-        *(B.ptr(a) for a in (ta, va, tb, vb, *outs, count)), ta.numel(),
-        B.stream_handle())
+    with B.launching(ta.device) as stream:
+        err = lib.lex_join_delta_launch(
+            *(B.ptr(a) for a in (ta, va, tb, vb, *outs, count)), ta.numel(),
+            stream)
     B.check_launch(lib, err, "lex_join_delta")
     launches += 1
     return (*outs, count)

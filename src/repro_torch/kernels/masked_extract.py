@@ -42,9 +42,10 @@ def _launch(x, masks, block_elems: int):
               and out.data_ptr() % 16 == 0)
     lib = B.library("masked_extract", _SIGNATURE)
     # the kernel only moves elements: the "max" codes name their width
-    err = lib.masked_extract_launch(B.KIND_CODES[("max", x.dtype)], B.ptr(x),
-                                    B.ptr(masks), B.ptr(out), p, m, u,
-                                    block_elems, vec, B.stream_handle())
+    with B.launching(x.device) as stream:
+        err = lib.masked_extract_launch(
+            B.KIND_CODES[("max", x.dtype)], B.ptr(x), B.ptr(masks),
+            B.ptr(out), p, m, u, block_elems, vec, stream)
     B.check_launch(lib, err, "masked_extract")
     launches += 1
     return out

@@ -60,11 +60,13 @@ def _launch(d, x, active, kind, emit_stored, emit_cov):
     cnt = torch.zeros((m, p), dtype=torch.int32, device=dev)
     dsz = torch.zeros((m, p), dtype=torch.int32, device=dev)
     lib = B.library("round_recv", _SIGNATURE)
-    err = lib.round_recv_launch(
-        B.KIND_CODES[(kind, x.dtype)], B.ptr(d), B.ptr(x), B.ptr(active),
-        B.ptr(xo), B.ptr(stored), B.ptr(cov), B.ptr(cnt), B.ptr(dsz),
-        p, m, u, int(vectorized(u, x.element_size(), d, x, xo, stored)),
-        MAX_BLOCKS, B.stream_handle())
+    with B.launching(dev) as stream:
+        err = lib.round_recv_launch(
+            B.KIND_CODES[(kind, x.dtype)], B.ptr(d), B.ptr(x),
+            B.ptr(active), B.ptr(xo), B.ptr(stored), B.ptr(cov), B.ptr(cnt),
+            B.ptr(dsz), p, m, u,
+            int(vectorized(u, x.element_size(), d, x, xo, stored)),
+            MAX_BLOCKS, stream)
     B.check_launch(lib, err, "round_recv")
     launches += 1
     return xo, stored, cov, cnt, dsz

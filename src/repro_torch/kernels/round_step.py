@@ -172,13 +172,15 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
         for t in (delta, x, buf, xo, bo, inbox)))
     blocks = ctypes.c_longlong(0)
     lib = B.library("round_step", _SIGNATURE)
-    err = lib.round_step_launch(
-        B.KIND_CODES[(kind, x.dtype)], B.ptr(delta), B.ptr(x), B.ptr(buf),
-        B.ptr(active), B.ptr(delivered), B.ptr(nbrs), B.ptr(rev), B.ptr(xo),
-        B.ptr(bo), B.ptr(inbox), B.ptr(nodecnt), B.ptr(ssend), B.ptr(cnt),
-        B.ptr(dsz), nb, n, p, k, int(per_origin), int(extracts), u,
-        pl.vec_bytes, pl.reg_tally, pl.stages, pl.threads, pl.table_bytes,
-        pl.bar_bytes, pl.smem, ctypes.byref(blocks), B.stream_handle())
+    with B.launching(dev) as stream:
+        err = lib.round_step_launch(
+            B.KIND_CODES[(kind, x.dtype)], B.ptr(delta), B.ptr(x),
+            B.ptr(buf), B.ptr(active), B.ptr(delivered), B.ptr(nbrs),
+            B.ptr(rev), B.ptr(xo), B.ptr(bo), B.ptr(inbox), B.ptr(nodecnt),
+            B.ptr(ssend), B.ptr(cnt), B.ptr(dsz), nb, n, p, k,
+            int(per_origin), int(extracts), u, pl.vec_bytes, pl.reg_tally,
+            pl.stages, pl.threads, pl.table_bytes, pl.bar_bytes, pl.smem,
+            ctypes.byref(blocks), stream)
     B.check_launch(lib, err, "round_step")
     launches += -(-nb // MAX_CONFIGS)           # one launch a chunk
     last_launch = (pl, blocks.value)

@@ -172,11 +172,13 @@ def kernels(baseline: Path | None):
                     extracts=extracts, s=s, tb=tb):
                 for o in outs[2:]:
                     o.zero_()
-                err = base[0].round_step_launch(
-                    1, *(B.ptr(a) for a in args), B.ptr(outs[0]),
-                    B.ptr(outs[1]), None, *(B.ptr(o) for o in outs[2:]), 1,
-                    n, p, k, int(per_origin), int(extracts), KEYS, min(n, 32),
-                    tb, tb + 4 * 32 * n * (1 + k + s), B.stream_handle())
+                with B.launching(dev) as stream:
+                    err = base[0].round_step_launch(
+                        1, *(B.ptr(a) for a in args), B.ptr(outs[0]),
+                        B.ptr(outs[1]), None, *(B.ptr(o) for o in outs[2:]),
+                        1, n, p, k, int(per_origin), int(extracts), KEYS,
+                        min(n, 32), tb, tb + 4 * 32 * n * (1 + k + s),
+                        stream)
                 if err:
                     raise RuntimeError(f"baseline round_step: error {err}")
             old()
@@ -199,8 +201,9 @@ def kernels(baseline: Path | None):
         out = torch.empty_like(want)
 
         def old_digest():
-            err = base[1].digest_blocks_launch(1, B.ptr(xd), B.ptr(out), n,
-                                               KEYS, be, B.stream_handle())
+            with B.launching(dev) as stream:
+                err = base[1].digest_blocks_launch(1, B.ptr(xd), B.ptr(out),
+                                                   n, KEYS, be, stream)
             if err:
                 raise RuntimeError(f"baseline digest_blocks: error {err}")
         old_digest()

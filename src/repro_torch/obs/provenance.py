@@ -274,6 +274,22 @@ class ProvenanceResult(NamedTuple):
         return ProvenanceResult(*(a[:b] for a in self[:10]),
                                 nbrs=self.nbrs, spec=self.spec)
 
+    @classmethod
+    def cat(cls, parts, device) -> "ProvenanceResult":
+        """Batched results of consecutive blocks of the batch axis as one:
+        the matrices (tensors) gathered on ``device``, the host channels
+        concatenated, ``nbrs`` and the spec shared."""
+
+        def cat(f):
+            vals = [getattr(p, f) for p in parts]
+            if isinstance(vals[0], torch.Tensor):
+                return torch.cat([v.to(device) for v in vals])
+            return np.concatenate(vals)
+
+        return cls(**{f: cat(f) for f in cls._fields
+                      if f not in ("nbrs", "spec")},
+                   nbrs=parts[0].nbrs, spec=parts[0].spec)
+
     def numpy(self) -> "ProvenanceResult":
         """The same result with every matrix a host numpy array."""
         return ProvenanceResult(*(_np(a) for a in self[:7]), *self[7:])

@@ -171,6 +171,14 @@ class TelemetryResult(NamedTuple):
             raise ValueError("not a batched telemetry result")
         return TelemetryResult(*(a[:b] for a in self[:6]), spec=self.spec)
 
+    @classmethod
+    def cat(cls, parts) -> "TelemetryResult":
+        """Batched results of consecutive blocks of the batch axis as one:
+        every channel concatenated, the spec shared."""
+        return cls(**{f: np.concatenate([getattr(p, f) for p in parts])
+                      for f in cls._fields if f != "spec"},
+                   spec=parts[0].spec)
+
     @property
     def redundant_elems(self) -> np.ndarray:
         """Received-but-already-known elements per (round, node)."""

@@ -43,6 +43,7 @@ uploaded once per run, as a single run's views are.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -100,9 +101,13 @@ class FaultSchedule:
     def num_rounds(self) -> int:
         return self.link_ok.shape[0]
 
-    @property
+    @functools.cached_property
     def _mask(self) -> np.ndarray:
         return self.topo.mask.cpu().numpy()
+
+    @functools.cached_property
+    def _nbrs(self) -> np.ndarray:
+        return self.topo.nbrs.cpu().numpy()
 
     @property
     def is_trivial(self) -> bool:
@@ -236,7 +241,7 @@ class FaultSchedule:
         """Delivery of the directed message src → dst at round ``t`` (folds
         link state and both endpoints' liveness). Non-edges of the topology
         never deliver, at any round."""
-        nbrs = self.topo.nbrs.cpu().numpy()[dst]
+        nbrs = self._nbrs[dst]
         slots = np.nonzero((nbrs == src) & self._mask[dst])[0]
         if slots.size == 0:
             return False
@@ -245,6 +250,12 @@ class FaultSchedule:
         if not (self.up[t, src] and self.up[t, dst]):
             return False
         return bool(self.link_ok[t, dst, slots[0]])
+
+    def drop_fn(self, clock):
+        """A ``runtime.LocalTransport.drop_fn`` driven by this schedule:
+        ``clock`` is a zero-argument callable returning the current
+        round."""
+        return lambda src, dst: not self.delivers(clock(), src, dst)
 
 
 def _upload(tables, device) -> FaultViews:

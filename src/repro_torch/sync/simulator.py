@@ -39,7 +39,7 @@ package's ``run_scan_chunked``. ``simulate`` runs one chunk.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -197,67 +197,119 @@ class Chunk(NamedTuple):
     prov: Optional[tuple] = None
 
 
+class RoundLoop:
+    """One run's round loop from ``carry`` (wrapped by :func:`wrap_carry`
+    when ``telemetry``/``provenance`` are asked for): :meth:`step` queues
+    round t — ``op_fn(x, t)`` while t < active_rounds (⊥ after; a down node
+    executes no ops), then one ``alg.round_step`` under round t's fault
+    masks, then the observability updates — and keeps its metrics on the
+    device; :meth:`finish` moves the rounds stepped so far to the host.
+    ``reduce(metrics, uniform, channels)`` may fold each round's per-config
+    metrics (and telemetry channels) before they are kept (the store's
+    in-loop object reduction).
+
+    A sharded sweep or store steps one loop per block, each on its own
+    device, round by round (:func:`run_blocks`)."""
+
+    def __init__(self, alg: SyncAlgorithm, carry, op_fn: Callable,
+                 active_rounds: int, views, track_convergence: bool,
+                 reduce: Optional[Callable] = None, telemetry=None,
+                 provenance=None):
+        self.alg, self.op_fn, self.active_rounds = alg, op_fn, active_rounds
+        self.views, self.track_convergence = views, track_convergence
+        self.reduce, self.telemetry, self.provenance = \
+            reduce, telemetry, provenance
+        self.carry, self.tele, self.prov = unwrap_carry(carry, telemetry,
+                                                        provenance)
+        self.want_recv = telemetry is not None and telemetry.redundancy
+        self._reset()
+
+    def _reset(self):
+        self.metrics: List = []
+        self.uniform: List = []
+        self.tchans: List = []
+        self.pchans: List = []
+
+    def step(self, t: int) -> None:
+        alg, x_before = self.alg, self.carry.x
+        rf = None if self.views is None else self.views.at_round(t)
+        if t < self.active_rounds:
+            delta = T.cast_like(self.op_fn(x_before, t), x_before)
+            if rf is not None:                  # a down node executes no ops
+                delta = T.where_bot(rf.up, delta)
+        else:
+            delta = T.zeros_like(x_before)
+        out = alg.round_step(self.carry, delta, rf, self.want_recv,
+                             self.provenance is not None)
+        # drop the old carry (buffers and all) before the round's other
+        # passes allocate
+        self.carry, m = out[:2]
+        carry = self.carry
+        uni = cluster_uniform(alg.lattice, carry.x, alg.batched) \
+            if self.track_convergence else None
+        ch = None
+        if self.telemetry is not None:
+            self.tele, ch = tel.round_channels(
+                self.telemetry, alg, self.tele, x_before, carry,
+                out[2] if self.want_recv else None, rf)
+        if self.provenance is not None:
+            self.prov, pch = prv.round_update(self.provenance, alg,
+                                              self.prov, x_before, delta,
+                                              out[-1], t)
+            self.pchans.append(pch)
+        del out
+        if self.reduce is not None:
+            m, uni, ch = self.reduce(m, uni, ch)
+        self.metrics.append(m)
+        if self.track_convergence:
+            self.uniform.append(uni)
+        if ch is not None:
+            self.tchans.append(ch)
+
+    def finish(self):
+        """``(wrapped carry, Chunk)``: the carry after the rounds stepped so
+        far and their metrics and channels on the host, in one transfer
+        each; the loop goes on from there."""
+        alg = self.alg
+        lead = () if not alg.batched else (1,) if self.reduce is not None \
+            else (alg.batch,)
+        ys = to_host(self.metrics, self.uniform, self.track_convergence,
+                     lead, alg.metric_dtype)
+        node = lead + (alg.topo.num_nodes,)
+        if self.telemetry is not None:
+            tdt = torch.int32 if self.reduce is None else alg.metric_dtype
+            ys = ys._replace(tele=stack_host(self.tchans, 6, node, tdt))
+        if self.provenance is not None:
+            ys = ys._replace(prov=stack_host(self.pchans, 3, node,
+                                             torch.int32))
+        self._reset()
+        return rewrap(self.carry, self.tele, self.prov), ys
+
+
 def run_rounds(alg: SyncAlgorithm, carry, op_fn: Callable,
                active_rounds: int, views, track_convergence: bool,
                start: int, stop: int, reduce: Optional[Callable] = None,
                telemetry=None, provenance=None):
-    """Rounds [start, stop) of a run from ``carry`` (wrapped by
-    :func:`wrap_carry` when ``telemetry``/``provenance`` are asked for):
-    round t applies ``op_fn(x, t)`` while t < active_rounds (⊥ after; a
-    down node executes no ops), then one ``alg.round_step`` under round
-    t's fault masks, then the observability updates. ``reduce(metrics,
-    uniform, channels)`` may fold each round's per-config metrics (and
-    telemetry channels) before they are kept (the store's in-loop object
-    reduction). Returns ``(carry, Chunk)``: the metrics and channels
-    reach the host once, at the end."""
-    lattice = alg.lattice
-    carry, tele, prov = unwrap_carry(carry, telemetry, provenance)
-    want_recv = telemetry is not None and telemetry.redundancy
-    want_inbox = provenance is not None
-    metrics: List = []
-    uniform: List = []
-    tchans: List = []
-    pchans: List = []
+    """Rounds [start, stop) of a run from ``carry`` (see
+    :class:`RoundLoop`). Returns ``(carry, Chunk)``: the metrics and
+    channels reach the host once, at the end."""
+    loop = RoundLoop(alg, carry, op_fn, active_rounds, views,
+                     track_convergence, reduce, telemetry, provenance)
+    del carry                   # the loop holds the only reference
     for t in range(start, stop):
-        rf = None if views is None else views.at_round(t)
-        if t < active_rounds:
-            delta = T.cast_like(op_fn(carry.x, t), carry.x)
-            if rf is not None:                  # a down node executes no ops
-                delta = T.where_bot(rf.up, delta)
-        else:
-            delta = T.zeros_like(carry.x)
-        x_before = carry.x
-        out = alg.round_step(carry, delta, rf, want_recv, want_inbox)
-        carry, m = out[:2]
-        uni = cluster_uniform(lattice, carry.x, alg.batched) \
-            if track_convergence else None
-        ch = None
-        if telemetry is not None:
-            tele, ch = tel.round_channels(telemetry, alg, tele, x_before,
-                                          carry, out[2] if want_recv
-                                          else None, rf)
-        if provenance is not None:
-            prov, pch = prv.round_update(provenance, alg, prov, x_before,
-                                         delta, out[-1], t)
-            pchans.append(pch)
-        del out
-        if reduce is not None:
-            m, uni, ch = reduce(m, uni, ch)
-        metrics.append(m)
-        if track_convergence:
-            uniform.append(uni)
-        if ch is not None:
-            tchans.append(ch)
-    lead = () if not alg.batched else (1,) if reduce is not None \
-        else (alg.batch,)
-    ys = to_host(metrics, uniform, track_convergence, lead, alg.metric_dtype)
-    node = lead + (alg.topo.num_nodes,)
-    if telemetry is not None:
-        tdt = torch.int32 if reduce is None else alg.metric_dtype
-        ys = ys._replace(tele=stack_host(tchans, 6, node, tdt))
-    if provenance is not None:
-        ys = ys._replace(prov=stack_host(pchans, 3, node, torch.int32))
-    return rewrap(carry, tele, prov), ys
+        loop.step(t)
+    return loop.finish()
+
+
+def run_blocks(loops: Sequence[RoundLoop], start: int, stop: int) -> list:
+    """Rounds [start, stop) of several blocks' loops, issued round by round
+    (every block's round t before any block's round t + 1) with no host
+    read in between, so blocks on different devices overlap. Returns each
+    block's ``(carry, Chunk)``."""
+    for t in range(start, stop):
+        for loop in loops:
+            loop.step(t)
+    return [loop.finish() for loop in loops]
 
 
 def stack_host(rounds, k: int, shape: tuple, dtype) -> tuple:
@@ -295,6 +347,35 @@ def cat_chunks(chunks) -> Chunk:
         else np.concatenate([c.uniform for c in chunks])
     return Chunk(cat([c.metrics for c in chunks]), uni,
                  cat([c.tele for c in chunks]), cat([c.prov for c in chunks]))
+
+
+def cat_results(parts: Sequence[SimResult], device) -> SimResult:
+    """Batched results of consecutive blocks of a batch axis as one result
+    over the whole axis: host arrays concatenated, final states and
+    provenance matrices gathered on ``device``."""
+    if len(parts) == 1:
+        return parts[0]
+    first = parts[0]
+
+    def host(get):
+        return np.concatenate([get(p) for p in parts])
+
+    def gather(tensors):
+        return torch.cat([t.to(device) for t in tensors])
+
+    return SimResult(
+        tx=host(lambda p: p.tx), mem=host(lambda p: p.mem),
+        cpu=host(lambda p: p.cpu),
+        max_mem_node=host(lambda p: p.max_mem_node),
+        final_x=T.tree_map(lambda *a: gather(a), first.final_x,
+                           *(p.final_x for p in parts[1:])),
+        uniform=None if first.uniform is None
+        else host(lambda p: p.uniform),
+        telemetry=None if first.telemetry is None
+        else tel.TelemetryResult.cat([p.telemetry for p in parts]),
+        provenance=None if first.provenance is None
+        else prv.ProvenanceResult.cat([p.provenance for p in parts],
+                                      device))
 
 
 def collect_result(carry, metrics, uniform=None,

@@ -36,8 +36,9 @@ Scale knobs, all bit-identical to the plain run:
   (a fingerprint of its configuration).
 
 Observability: ``telemetry=`` gives per-object [B, T, N] channels (with
-``object_metrics=False``, one [1, T, N] partial reduced in the loop: sums
-for recv/novel/buf, maxes for stale/ack/gap, in the metric dtype);
+``object_metrics=False``, [S, T, N] per-shard partials reduced in the
+loop: sums for recv/novel/buf, maxes for stale/ack/gap, in the metric
+dtype);
 ``provenance=`` the per-object lineage (it needs ``object_metrics=True``);
 both carries and their channels ride the checkpoints, and a resume under
 another observability configuration is refused. ``trace=`` takes an
@@ -45,15 +46,30 @@ another observability configuration is refused. ``trace=`` takes an
 ``chunk_boundary`` instant at every chunk end of a chunked run and a
 ``checkpoint_save`` span around every save.
 
-``shard=True`` (the object axis over several devices) and ``pad_to`` (its
-pad multiple) wait for ROADMAP A4's ``torch.distributed`` mesh and raise
-``NotImplementedError``.
+Sharding and padding: ``shard=True`` splits the object axis into equal
+blocks over the devices of ``device`` (``launch.mesh.store_mesh``: every
+card for ``"cuda"``, or an explicit list such as ``["cpu"] * 4`` or
+``["cuda:0"] * 4``). Each block is its own batched run on its device,
+stepped round by round beside the others (objects never communicate). An
+object count the blocks cannot split is padded with ⊥ objects to the
+shard multiple (``pad_to`` forces a multiple, which the shard count must
+divide). With one block the op stream sees exactly the unpadded objects;
+over several, each block runs ``op_fn.for_block(lo, hi)`` when the op_fn
+has one (``workloads.versioned_slot_op``), else ``op_fn`` itself, which
+must then derive the object extent from ``x``. The pad is sliced off the
+per-object results and masked out of the in-loop reductions: with
+``object_metrics=False``, ``sim`` holds [S, T] per-shard partials (S the
+block count), through chunks, checkpoints (a bundle holds a carry and a
+metrics prefix a block) and ``resume_store`` (the fingerprint records the
+shard count).
+One block is the unsharded run, launch for launch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional, Union
 
@@ -62,16 +78,17 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.lattice import BatchWeights, Lattice, tree_leaves
+from repro_torch.launch import mesh
 from repro_torch.obs import provenance as prv
 from repro_torch.obs import telemetry as tel
 from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import RoundMetrics, SyncAlgorithm
 from repro_torch.sync.digest import DigestSpec
 from repro_torch.sync.faults import FaultSchedule, FaultViews, shared_views
-from repro_torch.sync.simulator import (Chunk, SimResult, cat_chunks,
-                                        check_obs, collect_result,
-                                        first_stable_round, resolve_device,
-                                        run_rounds, wrap_carry)
+from repro_torch.sync.simulator import (Chunk, RoundLoop, SimResult,
+                                        cat_chunks, cat_results, check_obs,
+                                        collect_result, first_stable_round,
+                                        run_blocks, wrap_carry)
 from repro_torch.sync.topology import Topology
 
 
@@ -135,9 +152,9 @@ class StoreResult(NamedTuple):
     """Per-object metrics plus store-level (optionally byte-weighted)
     aggregates. ``sim`` is the batched result: [B, T] metrics, [B, N, ...U]
     final states. With ``object_metrics=False`` the run reduced the object
-    axis in the loop: ``sim`` holds [1, T] sums (maxes for
-    ``max_mem_node``), the ``store_*`` aggregates are exact and the
-    per-object views raise."""
+    axis in the loop: ``sim`` holds [S, T] per-shard partial sums (maxes
+    for ``max_mem_node``; S = 1 unsharded), the ``store_*`` aggregates are
+    exact and the per-object views raise."""
 
     sim: SimResult
     weights: Optional[np.ndarray] = None            # [B] bytes per element
@@ -190,8 +207,8 @@ class StoreResult(NamedTuple):
     @property
     def telemetry(self):
         """The run's ``obs.TelemetryResult`` (None unless asked for):
-        [B, T, N] per-object channels, or with ``object_metrics=False`` one
-        [1, T, N] partial (sums for recv/novel/buf, maxes for
+        [B, T, N] per-object channels, or with ``object_metrics=False``
+        [S, T, N] per-shard partials (sums for recv/novel/buf, maxes for
         stale/ack/gap)."""
         return self.sim.telemetry
 
@@ -327,32 +344,70 @@ def _validate_op_fn(op_fn, x, objects: int, n: int):
                 f"nodes, ...universe] state exactly")
 
 
-def _reduce_objects(m: RoundMetrics, uni, ch=None):
+def _reduce_objects(m: RoundMetrics, uni, ch=None, keep=None):
     """The in-loop object reduction of ``object_metrics=False``: each
     round's per-object metrics folded to one [1] partial (sums; the max for
     ``max_mem_node``); ``uniform`` the [1] all-objects agreement; the
     telemetry channels ``ch`` (None without telemetry) to [1, N] in the
     metric dtype — sums for the payload tallies, maxes for the lag and gap
-    channels — so store-scale sums cannot wrap int32."""
+    channels — so store-scale sums cannot wrap int32. ``keep`` [B] bool
+    masks the shard pad's objects out (None: every object counts); a
+    padded ``digest_driven`` object still pays the Merkle floor, so
+    dropping its rows after the run would not be enough."""
+
+    def kept(v):
+        if keep is None:
+            return v
+        return torch.where(keep.view((-1,) + (1,) * (v.ndim - 1)), v, 0)
+
     out = RoundMetrics(
-        tx=m.tx.sum(0, keepdim=True), mem=m.mem.sum(0, keepdim=True),
-        cpu=m.cpu.sum(0, keepdim=True),
-        max_mem_node=m.max_mem_node.amax(0, keepdim=True))
-    uni = None if uni is None else torch.all(uni, 0, keepdim=True)
+        tx=kept(m.tx).sum(0, keepdim=True),
+        mem=kept(m.mem).sum(0, keepdim=True),
+        cpu=kept(m.cpu).sum(0, keepdim=True),
+        max_mem_node=kept(m.max_mem_node).amax(0, keepdim=True))
+    if uni is not None:
+        uni = torch.all(uni if keep is None else uni | ~keep, 0,
+                        keepdim=True)
     if ch is not None:
         mdt = m.tx.dtype
 
         def rsum(v):
-            return v.to(mdt).sum(0, keepdim=True, dtype=mdt)
+            return kept(v.to(mdt)).sum(0, keepdim=True, dtype=mdt)
 
         def rmax(v):
-            return v.to(mdt).amax(0, keepdim=True)
+            return kept(v.to(mdt)).amax(0, keepdim=True)
 
         ch = tel.TelemetryChannels(
             recv_elems=rsum(ch.recv_elems), novel_elems=rsum(ch.novel_elems),
             stale_rounds=rmax(ch.stale_rounds), ack_lag=rmax(ch.ack_lag),
             buf_elems=rsum(ch.buf_elems), div_gap=rmax(ch.div_gap))
     return out, uni, ch
+
+
+def _pad_tree(tree, lattice: Lattice, pad: int, n: int):
+    """Append ``pad`` ⊥ objects [pad, n, ...U] on the leading (object) axis
+    of every leaf."""
+    bot = lattice.bottom(tree_leaves(tree)[0].device)
+    return T.tree_map(
+        lambda a, bl: torch.cat([a, bl.to(a.dtype).expand(
+            (pad, n) + tuple(bl.shape))]), tree, bot)
+
+
+def _object_blocks(b: int, shard: bool, pad_to: Optional[int], device):
+    """The padded object count and its blocks: one block on ``device``
+    unsharded, else one a device of the store mesh over ``device``."""
+    m = mesh.batch_mesh(mesh.STORE_AXIS, shard, device)
+    nshard = mesh.axis_shards(m, mesh.STORE_AXIS)
+    mult = nshard if pad_to is None else pad_to
+    if mult < 1:
+        raise ValueError(f"pad_to must be >= 1, got {pad_to}")
+    b_pad = mesh.padded_size(b, mult)
+    if b_pad % nshard:
+        raise ValueError(
+            f"pad_to={pad_to} pads {b} objects to {b_pad}, which the "
+            f"{nshard}-shard object mesh cannot split — use a multiple of "
+            f"{nshard} (or drop pad_to and let the engine pad)")
+    return b_pad, mesh.shard_store_scan(b_pad, m)
 
 
 def simulate_store(
@@ -387,9 +442,10 @@ def simulate_store(
     schedule, on any ``engine``. ``track_convergence`` defaults on exactly
     when a fault schedule is given. ``layout``, the scale knobs
     (``chunk_rounds``, ``checkpoint``, ``object_metrics``) and the
-    observability (``telemetry``, ``provenance``, ``trace``) are described
-    in the module docstring; ``shard`` and ``pad_to`` raise
-    ``NotImplementedError``.
+    observability (``telemetry``, ``provenance``, ``trace``), ``shard``
+    and ``pad_to`` are described in the module docstring. With ``shard``,
+    ``device`` may be a list of devices; the final states are gathered on
+    the first.
     """
     return _simulate_store(
         algo, lattice, topo, spec, active_rounds, quiet_rounds, loo=loo,
@@ -464,11 +520,6 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
                     digest, layout, chunk_rounds, checkpoint, object_metrics,
                     pad_to, telemetry, provenance, trace, device,
                     resume) -> StoreResult:
-    if shard or pad_to is not None:
-        raise NotImplementedError(
-            "simulate_store(shard=True, pad_to=): the object axis over "
-            "several devices and its padding wait for torch.distributed "
-            "(ROADMAP A4, launch/mesh)")
     check_obs(telemetry, provenance)
     if provenance is not None and not object_metrics:
         raise ValueError(
@@ -484,11 +535,14 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     if ckpt is not None and chunk_rounds is None:
         raise ValueError("checkpoint= requires chunk_rounds: bundles are "
                          "written at chunk boundaries")
-    dev = resolve_device(device)
     b, n = spec.objects, topo.num_nodes
     total = active_rounds + quiet_rounds
 
-    # -- eager validation (before anything runs) --------------------------------
+    # -- object-axis padding geometry and the device blocks -----------------
+    b_pad, blocks = _object_blocks(b, shard, pad_to, device)
+    nshard, pad, dev = len(blocks), b_pad - b, blocks[0].device
+
+    # -- eager validation (before anything runs) ----------------------------
     if spec.x0 is not None:
         _validate_x0(spec.x0, lattice, n, b)
     x0 = None if spec.x0 is None else T.to(spec.x0, dev)
@@ -496,23 +550,51 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
         T.bcast(lattice.bottom(dev), (b, n))
     _validate_op_fn(spec.op_fn, x_first, b, n)
     del x_first
+    mesh.check_block_op(spec.op_fn, lattice, n, blocks, "StoreSpec.op_fn",
+                        mesh.STORE_AXIS)
+    if pad and x0 is not None:
+        x0 = _pad_tree(x0, lattice, pad, n)
 
-    alg = SyncAlgorithm(
-        name=algo, lattice=lattice, topo=topo.on(dev), loo=loo,
-        engine=engine,
-        metric_dtype=torch.int64 if wide_metrics else torch.int32,
-        digest=digest, batch=b)
-    views = spec.shared_views(topo, total, dev)
+    def block_op(blk):
+        if nshard > 1:
+            # each block runs its own rows; the pad's rows are masked out
+            # of the results (objects never interact)
+            return mesh.block_op(spec.op_fn, blk, nshard)
+        if not pad:
+            return spec.op_fn
+
+        def op_fn(x, t):
+            # one block: the op stream sees exactly the unpadded objects,
+            # and ⊥ deltas keep the pad at bottom
+            return _pad_tree(spec.op_fn(T.tree_map(lambda a: a[:b], x), t),
+                             lattice, pad, n)
+
+        return op_fn
+
     if track_convergence is None:
-        track_convergence = views is not None
-    reduce = None if object_metrics else _reduce_objects
-    fp = _run_fingerprint(algo, engine, lattice, topo, loo, b,
-                          total, chunk_rounds, object_metrics,
+        track_convergence = spec.faults is not None
+    mdt = torch.int64 if wide_metrics else torch.int32
+    algs, carries, views = [], [], {}
+    for blk in blocks:
+        alg = SyncAlgorithm(
+            name=algo, lattice=lattice, topo=topo.on(blk.device), loo=loo,
+            engine=engine, metric_dtype=mdt, digest=digest,
+            batch=blk.hi - blk.lo)
+        if str(blk.device) not in views:      # one upload a device
+            views[str(blk.device)] = spec.shared_views(topo, total,
+                                                       blk.device)
+        x0_blk = None if x0 is None else T.tree_map(
+            lambda a: a[blk.lo:blk.hi].to(blk.device), x0)
+        algs.append(alg)
+        carries.append(wrap_carry(alg, alg.init(x0_blk), telemetry,
+                                  provenance))
+    del x0
+    fp = _run_fingerprint(algo, engine, lattice, topo, loo, b, b_pad,
+                          nshard, total, chunk_rounds, object_metrics,
                           track_convergence, wide_metrics, digest,
                           telemetry, provenance)
 
-    carry = wrap_carry(alg, alg.init(x0), telemetry, provenance)
-    start, chunks = 0, []
+    start, chunks = 0, [[] for _ in blocks]
     if resume is not None:
         ckpt_r, at, extra = resume
         bad = [k for k, v in fp.items() if extra.get(k) != v]
@@ -524,23 +606,36 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
         if at > total:
             raise ValueError(f"checkpoint round {at} is past total rounds "
                              f"{total}")
-        mdt = np.int64 if wide_metrics else np.int32
-        lead = (at, b if object_metrics else 1)
-        cdt = np.int32 if object_metrics else mdt
-        like = {"carry": carry,
-                "ys": Chunk(tuple(np.zeros(lead, mdt) for _ in range(4)),
-                            np.zeros(lead, bool) if track_convergence
-                            else None,
-                            None if telemetry is None else tuple(
-                                np.zeros(lead + (n,), cdt)
-                                for _ in range(6)),
-                            None if provenance is None else tuple(
-                                np.zeros(lead + (n,), np.int32)
-                                for _ in range(3)))}
-        bundle = ckpt_r.restore(at, like)
-        carry, start = bundle["carry"], at
-        chunks.append(bundle["ys"])
-        del like, bundle
+        hdt = np.int64 if wide_metrics else np.int32
+        cdt = np.int32 if object_metrics else hdt
+        likes = []
+        for blk in blocks:
+            lead = (at, blk.hi - blk.lo if object_metrics else 1)
+            likes.append(Chunk(
+                tuple(np.zeros(lead, hdt) for _ in range(4)),
+                np.zeros(lead, bool) if track_convergence else None,
+                None if telemetry is None else tuple(
+                    np.zeros(lead + (n,), cdt) for _ in range(6)),
+                None if provenance is None else tuple(
+                    np.zeros(lead + (n,), np.int32) for _ in range(3))))
+        # a bundle holds one carry and one metrics prefix a block
+        bundle = ckpt_r.restore(at, {"carry": carries, "ys": likes})
+        carries, start = bundle["carry"], at
+        chunks = [[ys] for ys in bundle["ys"]]
+        del likes, bundle
+
+    loops = []
+    for blk, alg, carry in zip(blocks, algs, carries):
+        keep = None if object_metrics or blk.hi <= b else \
+            torch.arange(blk.lo, blk.hi, device=blk.device) < b
+        reduce = None if object_metrics else \
+            functools.partial(_reduce_objects, keep=keep)
+        loops.append(RoundLoop(alg, carry, block_op(blk), active_rounds,
+                               views[str(blk.device)], track_convergence,
+                               reduce, telemetry, provenance))
+    # the loops hold the only references: an initial carry kept alive
+    # would double the buffers' memory for the whole run
+    del carries, carry
 
     step = chunk_rounds or max(total - start, 1)
     span = trace.span("store_scan", algo=algo, engine=engine, objects=b,
@@ -549,24 +644,46 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     with span:
         for t0 in range(start, total, step):
             t1 = min(t0 + step, total)
-            carry, ys = run_rounds(alg, carry, spec.op_fn, active_rounds,
-                                   views, track_convergence, t0, t1, reduce,
-                                   telemetry, provenance)
-            chunks.append(ys)
+            outs = run_blocks(loops, t0, t1)
+            for c, (_, ys) in zip(chunks, outs):
+                c.append(ys)
             if trace is not None and chunk_rounds is not None:
                 trace.instant("chunk_boundary", rounds_done=t1)
             if ckpt is not None:
                 save = trace.span("checkpoint_save", rounds_done=t1) \
                     if trace is not None else contextlib.nullcontext()
                 with save:
-                    ckpt.save(t1, {"carry": carry, "ys": cat_chunks(chunks)},
+                    ckpt.save(t1, {"carry": [c for c, _ in outs],
+                                   "ys": [cat_chunks(c) for c in chunks]},
                               extra=fp)
-    if not chunks:
+            del outs
+    if not chunks[0]:
         raise ValueError(f"nothing to run: start={start} >= total={total}")
-    sim = collect_result(carry, cat_chunks(chunks), batched=True,
-                         telemetry=telemetry, provenance=provenance,
-                         nbrs=topo.nbrs)
-    del carry
+    parts = []
+    while loops:
+        # one block's carry at a time: a collected block frees its buffers
+        carry, _ = loops.pop(0).finish()
+        parts.append(collect_result(
+            carry, cat_chunks(chunks.pop(0)), batched=True,
+            telemetry=telemetry, provenance=provenance, nbrs=topo.nbrs))
+        del carry
+    sim = cat_results(parts, dev)
+    del parts
+
+    # -- mask the pad back out ----------------------------------------------
+    if pad:
+        fx = T.tree_map(lambda a: a[:b], sim.final_x)
+        if object_metrics:
+            sim = sim._replace(
+                tx=sim.tx[:b], mem=sim.mem[:b], cpu=sim.cpu[:b],
+                max_mem_node=sim.max_mem_node[:b], final_x=fx,
+                uniform=None if sim.uniform is None else sim.uniform[:b],
+                telemetry=None if sim.telemetry is None
+                else sim.telemetry.take_lead(b),
+                provenance=None if sim.provenance is None
+                else sim.provenance.take_lead(b))
+        else:
+            sim = sim._replace(final_x=fx)   # metrics masked in the loop
 
     fsb = None
     if spec.weights is not None:
@@ -578,8 +695,8 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
                        object_metrics=object_metrics, num_objects=b)
 
 
-def _run_fingerprint(algo, engine, lattice, topo, loo, objects,
-                     total_rounds, chunk_rounds, object_metrics,
+def _run_fingerprint(algo, engine, lattice, topo, loo, objects, padded,
+                     shards, total_rounds, chunk_rounds, object_metrics,
                      track_convergence, wide_metrics, digest,
                      telemetry=None, provenance=None) -> dict:
     """JSON-safe identity of a store run, written into every chunk
@@ -594,6 +711,8 @@ def _run_fingerprint(algo, engine, lattice, topo, loo, objects,
         "topology": topo.name,
         "loo": loo,
         "objects": objects,
+        "padded": padded,
+        "shards": shards,
         "total_rounds": total_rounds,
         "chunk_rounds": chunk_rounds,
         "object_metrics": bool(object_metrics),

@@ -13,7 +13,10 @@ lattice and topology as one batched run:
   config, so **every cell is bit-identical (states and all metrics) to its
   single ``simulate`` run** on every engine;
 * metrics come back per config ([B, T]), with per-config
-  ``convergence_round()`` and ``SimResult.cell(b)`` single-run views.
+  ``convergence_round()`` and ``SimResult.cell(b)`` single-run views;
+* ``shard=True`` splits the config axis into blocks over several devices
+  (``launch.mesh.shard_sweep_scan``): configs never communicate, so each
+  block runs on its own device with its cells' fault masks.
 
 What cannot batch: the algorithm (buffers differ in shape), the topology
 and the lattice. A figure grid loops over those and sweeps the rest.
@@ -27,15 +30,16 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.core.lattice import Lattice
+from repro_torch.launch import mesh
 from repro_torch.obs import provenance as prv
 from repro_torch.obs import telemetry as tel
 from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import SyncAlgorithm
 from repro_torch.sync.digest import DigestSpec
 from repro_torch.sync.faults import FaultSchedule, FaultViews, stacked_views
-from repro_torch.sync.simulator import (SimResult, check_obs,
-                                        collect_result, resolve_device,
-                                        run_rounds, wrap_carry)
+from repro_torch.sync.simulator import (RoundLoop, SimResult, cat_results,
+                                        check_obs, collect_result,
+                                        run_blocks, wrap_carry)
 from repro_torch.sync.topology import Topology
 
 
@@ -76,12 +80,14 @@ class SweepSpec:
     @staticmethod
     def stack_op(op_fns: Sequence[Callable]) -> Callable:
         """B single-run op_fns as one batched op_fn: cell b's delta is
-        ``op_fns[b]`` of cell b's states."""
+        ``op_fns[b]`` of cell b's states (``for_block(lo, hi)``: cells
+        [lo, hi) alone, for a sharded sweep)."""
 
         def op_fn(x, t):
             return T.stack([fn(T.tree_map(lambda a: a[b], x), t)
                             for b, fn in enumerate(op_fns)])
 
+        op_fn.for_block = lambda lo, hi: SweepSpec.stack_op(op_fns[lo:hi])
         return op_fn
 
     def stacked_views(self, topo: Topology, total_rounds: int,
@@ -126,28 +132,44 @@ def simulate_sweep(
     ``res.telemetry.cell(b)`` and ``res.provenance.cell(b)`` are cell b's
     single run's.
 
-    ``shard=True`` (the config axis over several devices) waits for
-    ROADMAP A4's ``torch.distributed`` mesh and raises
-    ``NotImplementedError``.
+    ``shard=True`` splits the config axis into equal blocks over the
+    devices of ``device`` (``launch.mesh.sweep_mesh``: every card for
+    ``"cuda"``, or an explicit list such as ``["cpu"] * 4``), each block's
+    cells and fault masks on its own device; the result is the unsharded
+    run's. The batch must divide into the blocks, and a per-cell op stream
+    must derive its cells from ``x`` or cut its tables with a
+    ``for_block(lo, hi)`` method (``workloads.gset_unique_sweep_op`` and
+    :meth:`SweepSpec.stack_op` have one); one that does neither is refused
+    before anything runs.
     """
-    if shard:
-        raise NotImplementedError(
-            "simulate_sweep(shard=True): the config axis over several "
-            "devices waits for torch.distributed (ROADMAP A4, launch/mesh)")
     check_obs(telemetry, provenance)
-    dev = resolve_device(device)
-    alg = SyncAlgorithm(
-        name=algo, lattice=lattice, topo=topo.on(dev), loo=loo,
-        engine=engine,
-        metric_dtype=torch.int64 if wide_metrics else torch.int32,
-        digest=digest, batch=spec.batch)
+    blocks = mesh.shard_sweep_scan(
+        spec.batch, mesh.batch_mesh(mesh.SWEEP_AXIS, shard, device))
+    mesh.check_block_op(spec.op_fn, lattice, topo.num_nodes, blocks,
+                        "SweepSpec.op_fn", mesh.SWEEP_AXIS)
     total = active_rounds + quiet_rounds
-    views = spec.stacked_views(topo, total, dev)
     if track_convergence is None:
-        track_convergence = views is not None
-    carry, ys = run_rounds(
-        alg, wrap_carry(alg, alg.init(spec.x0), telemetry, provenance),
-        spec.op_fn, active_rounds, views, track_convergence, 0, total,
-        telemetry=telemetry, provenance=provenance)
-    return collect_result(carry, ys, batched=True, telemetry=telemetry,
-                          provenance=provenance, nbrs=topo.nbrs)
+        track_convergence = spec.has_faults
+    host = spec.stacked_views(topo, total)          # on the host
+    loops = []
+    for blk in blocks:
+        alg = SyncAlgorithm(
+            name=algo, lattice=lattice, topo=topo.on(blk.device), loo=loo,
+            engine=engine,
+            metric_dtype=torch.int64 if wide_metrics else torch.int32,
+            digest=digest, batch=blk.hi - blk.lo)
+        # per-cell masks [T, B, N, P] shard with their cells
+        views = None if host is None else FaultViews(
+            *(a[:, blk.lo:blk.hi].to(blk.device).contiguous()
+              for a in host))
+        x0 = None if spec.x0 is None else T.tree_map(
+            lambda a: torch.as_tensor(a)[blk.lo:blk.hi], spec.x0)
+        loops.append(RoundLoop(
+            alg, wrap_carry(alg, alg.init(x0), telemetry, provenance),
+            mesh.block_op(spec.op_fn, blk, len(blocks)), active_rounds,
+            views, track_convergence, telemetry=telemetry,
+            provenance=provenance))
+    return cat_results(
+        [collect_result(carry, ys, batched=True, telemetry=telemetry,
+                        provenance=provenance, nbrs=topo.nbrs)
+         for carry, ys in run_blocks(loops, 0, total)], blocks[0].device)

@@ -38,6 +38,13 @@ class Topology:
                                    mask=self.mask.to(device),
                                    rev=self.rev.to(device))
 
+    def neighbor_lists(self) -> list:
+        """Each node's neighbour ids in slot order (host lists, padding
+        dropped) — what a gossip node is built with."""
+        nbrs, mask = self.nbrs.cpu().tolist(), self.mask.cpu().tolist()
+        return [[j for j, ok in zip(row, ok_row) if ok]
+                for row, ok_row in zip(nbrs, mask)]
+
     @functools.cached_property
     def routes(self):
         """Slot-major int64 gather indices ``(rev.T, nbrs.T)`` [P, N]:

@@ -165,6 +165,10 @@ def gset_unique_sweep_op(nodes: int, events: int,
         d.scatter_(2, ids[..., None], True)
         return d
 
+    if len(seeds) > 1:
+        # a sharded sweep's block of cells runs its own seeds
+        op_fn.for_block = lambda lo, hi: gset_unique_sweep_op(
+            nodes, events, seeds[lo:hi])
     return op_fn
 
 
@@ -360,12 +364,20 @@ def versioned_slot_op(counts: np.ndarray, slots: int) -> Callable:
     derived from the object's current version, so concurrent updates from
     different nodes hit overlapping slots — the contention of the paper's
     Zipf workload. Returns an op_fn over stacked states [B, N, slots]; the
-    count table goes to the device once, as [T, B, N]."""
-    upd = np.ascontiguousarray(np.transpose(np.asarray(counts, np.int32),
-                                            (0, 2, 1)))           # [T, B, N]
+    count table goes to the device once, as [T, B, N]. Its ``for_block(lo,
+    hi)`` is the op stream of objects [lo, hi) alone: a sharded store
+    (``simulate_store(shard=True)``) runs it on each device's block; each
+    block's op is built once and keeps its own device table."""
+    return _slot_op(np.ascontiguousarray(np.transpose(
+        np.asarray(counts, np.int32), (0, 2, 1))), slots)       # [T, B, N]
+
+
+def _slot_op(upd: np.ndarray, slots: int) -> Callable:
+    """:func:`versioned_slot_op` over an update table [T, B, N]."""
     tables = _per_device(lambda dev: (
         torch.as_tensor(upd, device=dev),
         torch.arange(slots, dtype=torch.int32, device=dev)))
+    blocks = {}
 
     def op_fn(x, t):
         tab, cols = tables(x.device)
@@ -374,6 +386,17 @@ def versioned_slot_op(counts: np.ndarray, slots: int) -> Callable:
                              f"cannot serve {x.shape[0]} object rows")
         return _slot_bumps(x, tab[t], slots, cols)
 
+    def for_block(lo: int, hi: int) -> Callable:
+        """The op stream of objects [lo, hi); rows at or past the table's
+        objects (the shard pad) take no ops."""
+        if (lo, hi) not in blocks:
+            block = np.zeros((upd.shape[0], hi - lo, upd.shape[2]), np.int32)
+            real = upd[:, lo:hi]
+            block[:, :real.shape[1]] = real
+            blocks[lo, hi] = _slot_op(block, slots)
+        return blocks[lo, hi]
+
+    op_fn.for_block = for_block
     return op_fn
 
 

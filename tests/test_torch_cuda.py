@@ -659,3 +659,108 @@ def test_mega_round_with_the_inbox_and_extracts(sm90, kind_name, rng):
             assert torch.equal(g.cpu(), w), f
         else:
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_runtime_on_the_card_matches_the_cpu(sm90):
+    """The elastic-churn fleet (membership, heartbeats, progress, the
+    checkpoint registry and a shard ledger) on the card equals its CPU
+    run, with the JAX example's numbers."""
+    from repro_torch.elastic_churn import Fleet, run
+
+    fleet = Fleet(ledger=64)
+    want = run(fleet, "cpu", verbose=False)
+    got = run(fleet, "cuda", verbose=False)
+    for k in ("detected", "plans", "bootstrap", "latest_step", "progress",
+              "rx_novel", "rx_redundant", "sent_elements", "converged",
+              "drain_rounds"):
+        assert got[k] == want[k], k
+    for name, a in want["final"].items():
+        np.testing.assert_array_equal(got["final"][name], a, err_msg=name)
+    plain = run(Fleet(), "cuda", verbose=False)
+    assert (plain["detected"], plain["bootstrap"], plain["latest_step"],
+            plain["progress"], plain["rx_novel"], plain["rx_redundant"]) \
+        == ({7: 10}, [78], 19, 142_336, 5_815, 13_316)
+
+
+def _launched(fn):
+    """``fn()`` and the kernel launches it made."""
+    before = kernels.launch_counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3, 5])
+def test_padded_and_sharded_store_on_the_card(sm90, blocks):
+    """The Retwis store over ``["cuda:0"] * k`` blocks (padded where k does
+    not divide the objects) equals the unsharded run and launches each
+    round's kernels once a block: one block issues exactly the unsharded
+    run's launches."""
+    from repro_torch.sync import simulate_store
+
+    lat, topo, spec = retwis_store()
+    for engine in ENGINES:
+        want, w_launches = _launched(lambda: simulate_store(
+            "bprr", lat, topo, spec, 6, 4, engine=engine))
+        got, g_launches = _launched(lambda: simulate_store(
+            "bprr", lat, topo, spec, 6, 4, engine=engine, shard=True,
+            device=["cuda:0"] * blocks))
+        assert g_launches == {k: v * blocks for k, v in w_launches.items()}
+        for nm in ("tx", "mem", "cpu", "max_mem_node"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+        assert torch.equal(got.final_x, want.final_x)
+        np.testing.assert_array_equal(got.final_state_bytes,
+                                      want.final_state_bytes)
+        padded = simulate_store("bprr", lat, topo, spec, 6, 4,
+                                engine=engine, pad_to=blocks + 1)
+        np.testing.assert_array_equal(padded.tx, want.tx)
+        assert torch.equal(padded.final_x, want.final_x)
+        red = simulate_store("bprr", lat, topo, spec, 6, 4, engine=engine,
+                             shard=True, object_metrics=False,
+                             device=["cuda:0"] * blocks)
+        assert red.sim.tx.shape[0] == blocks
+        np.testing.assert_array_equal(red.store_tx, want.store_tx)
+        np.testing.assert_array_equal(red.store_max_mem_node,
+                                      want.store_max_mem_node)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["bprr", "digest_driven"])
+def test_sharded_runs_over_several_cards(sm90, algo):
+    """A store and a sweep with one block a card (``device="cuda"`` over
+    every visible card) equal their CPU runs on every engine, with the
+    last card current: each kernel launches on the card that holds its
+    block, whichever card is current. Skips with fewer than two cards."""
+    from repro_torch.sync import SweepSpec, simulate_store, simulate_sweep
+
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two CUDA devices or more")
+    lat, topo, spec = retwis_store(objects=8 * k + 3)   # pads to 9k
+    n, events = 15, 6
+    gtopo, glat = topology.partial_mesh(n, 4), GSet(n * events).lattice
+    sweep = SweepSpec(batch=2 * k, op_fn=workloads.gset_unique_sweep_op(
+        n, events, tuple(range(2 * k))))
+    kw = dict(digest=DigestSpec(8))
+    want = simulate_store(algo, lat, topo, spec, 6, 4, device="cpu", **kw)
+    want_sw = simulate_sweep(algo, glat, gtopo, sweep, events, 4,
+                             device="cpu", **kw)
+    for engine in ENGINES:
+        with torch.cuda.device(k - 1):
+            got, used = _launched(lambda: simulate_store(
+                algo, lat, topo, spec, 6, 4, engine=engine, shard=True,
+                device="cuda", **kw))
+            got_sw = simulate_sweep(algo, glat, gtopo, sweep, events, 4,
+                                    engine=engine, shard=True,
+                                    device="cuda", **kw)
+        assert (sum(used.values()) > 0) == (engine != "reference")
+        for nm in ("tx", "mem", "cpu", "max_mem_node"):
+            np.testing.assert_array_equal(getattr(got, nm),
+                                          getattr(want, nm))
+            np.testing.assert_array_equal(getattr(got_sw, nm),
+                                          getattr(want_sw, nm))
+        assert got.final_x.device == torch.device("cuda", 0)
+        assert torch.equal(got.final_x.cpu(), want.final_x)
+        assert torch.equal(got_sw.final_x.cpu(), want_sw.final_x)

@@ -4,7 +4,9 @@ in neither ``jax`` nor the JAX package ``repro``, no source file of theirs
 imports either, and the entry points run on the card unless told otherwise —
 without a card, ``simulate`` with no ``device=`` raises instead of falling
 back to the CPU, for the δ-family, a faulted resync run and an LWWMap run
-alike, and so do ``simulate_sweep`` and ``simulate_store``."""
+alike, and so do ``simulate_sweep``, ``simulate_store``, the gossip runtime
+(``GossipNode``, ``CheckpointRegistry``, ``ShardLedger``,
+``ProgressCounter``) and ``elastic_churn``."""
 
 import ast
 import subprocess
@@ -107,6 +109,20 @@ def test_entry_points_default_to_the_card():
         "    except RuntimeError as e:\n"
         "        print('RAISED', e)\n"
         "    run(engine='mega', device='cpu')\n"
+        "from repro_torch import elastic_churn\n"
+        "from repro_torch.checkpoint import CheckpointRegistry\n"
+        "from repro_torch.data import ProgressCounter, ShardLedger\n"
+        "from repro_torch.runtime import GossipNode, LocalTransport\n"
+        "for make in (lambda **k: GossipNode(0, [1], LocalTransport(), **k),\n"
+        "             lambda **k: CheckpointRegistry(8, **k),\n"
+        "             lambda **k: ShardLedger(8, **k),\n"
+        "             lambda **k: ProgressCounter(3, 0, **k),\n"
+        "             lambda **k: elastic_churn.run(verbose=False, **k)):\n"
+        "    try:\n"
+        "        make()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', e)\n"
+        "    make(device='cpu')\n"
         "a = torch.arange(8, dtype=torch.int32)\n"
         "ops.join(a, a); ops.delta_extract(a, a)\n"
         "ops.lex_join_delta((a, a), (a, a))\n"
@@ -114,7 +130,7 @@ def test_entry_points_default_to_the_card():
         "      sorted(kernels.KERNELS))\n")
     out = run_python(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED no CUDA device") == 5, out.stdout
+    assert out.stdout.count("RAISED no CUDA device") == 10, out.stdout
     # the CPU runs and calls took the plain versions: no kernel was launched
     assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
         "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \

@@ -390,9 +390,19 @@ def test_store_validation_and_unported_options():
     with pytest.raises(ValueError, match="layout"):
         simulate_store("bprr", lat, ttp, ok, T, layout="diagonal",
                        device="cpu")
-    for kw in ({"shard": True}, {"pad_to": 4}):
-        with pytest.raises(NotImplementedError):
-            simulate_store("bprr", lat, ttp, ok, T, device="cpu", **kw)
+    with pytest.raises(ValueError, match="cannot split"):
+        simulate_store("bprr", lat, ttp, ok, T, shard=True, pad_to=3,
+                       device=["cpu"] * 2)
+    with pytest.raises(ValueError, match="pad_to"):
+        simulate_store("bprr", lat, ttp, ok, T, pad_to=0, device="cpu")
+    with pytest.raises(ValueError, match="shard=True"):
+        simulate_store("bprr", lat, ttp, ok, T, device=["cpu"] * 2)
+    table = torch.zeros((B, N, N * T), dtype=torch.bool)
+    closed = StoreSpec(objects=B, op_fn=lambda x, t: table | x)
+    simulate_store("bprr", lat, ttp, closed, T, shard=True, device=["cpu"])
+    with pytest.raises(ValueError, match="sharded object axis"):
+        simulate_store("bprr", lat, ttp, closed, T, shard=True,
+                       device=["cpu"] * 2)
     for kw in ({"telemetry": object()}, {"provenance": object()}):
         with pytest.raises(TypeError):
             simulate_store("bprr", lat, ttp, ok, T, device="cpu", **kw)

@@ -267,8 +267,26 @@ def test_sweep_spec_validation_and_unported_options():
     with pytest.raises(ValueError):           # schedule bound to other topo
         simulate_sweep("bprr", lat, ttp, spec, T, device="cpu")
     ok = SweepSpec(batch=2, op_fn=tW.gset_unique_sweep_op(N, T, SEEDS[:2]))
-    with pytest.raises(NotImplementedError):
-        simulate_sweep("bprr", lat, ttp, ok, T, device="cpu", shard=True)
+    with pytest.raises(ValueError, match="not divisible"):
+        simulate_sweep("bprr", lat, ttp, ok, T, shard=True,
+                       device=["cpu"] * 4)
+    with pytest.raises(ValueError, match="shard=True"):
+        simulate_sweep("bprr", lat, ttp, ok, T, device=["cpu"] * 2)
+    stacked = SweepSpec(batch=2, op_fn=SweepSpec.stack_op(
+        [tW.gset_unique_op(N, T, s) for s in SEEDS[:2]]))
+    assert_same_run(
+        simulate_sweep("bprr", lat, ttp, stacked, T, shard=True,
+                       device=["cpu"] * 2),
+        simulate_sweep("bprr", lat, ttp, stacked, T, device="cpu"),
+        "stack_op over two blocks")
+    # over several blocks, an op_fn that closes over [B] tables is refused
+    # before anything runs; one block may close over them
+    table = torch.zeros((2, N, N * T), dtype=torch.bool)
+    closed = SweepSpec(batch=2, op_fn=lambda x, t: x | table)
+    with pytest.raises(ValueError, match="sharded config axis"):
+        simulate_sweep("bprr", lat, ttp, closed, T, shard=True,
+                       device=["cpu"] * 2)
+    simulate_sweep("bprr", lat, ttp, closed, T, shard=True, device=["cpu"])
     for kw in ({"telemetry": object()}, {"provenance": object()}):
         with pytest.raises(TypeError):
             simulate_sweep("bprr", lat, ttp, ok, T, device="cpu", **kw)
