@@ -117,13 +117,33 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    (bprr; on ``mega`` also with telemetry and provenance), three LWWMap
    rounds (reference) and three digest_driven rounds
    on ``fused`` — device time by kernel and the device's busy share; a
-   profiler failure fails the run.
+   profiler failure fails the run;
+11. the model side's server (plain PyTorch; run after phase 10, the
+   launch counters zeroed and read: no kernel of the eight launches), each
+   architecture at its full width with weights from seed 0 drawn on the
+   card: qwen3-0.6b whole (28 layers) on R1 (``ServeRun``'s defaults:
+   batch 4, prompt 32, 16 new tokens) and R2 (batch 8, prompt 2,048, 32
+   new), recurrentgemma-2b and rwkv6-1.6b whole on R2, the other six one
+   pattern group deep on batch 4, prompt 512, 16 new (musicgen-large and
+   internvl2-26b, whose frontends ``generate`` refuses, through
+   ``forward``): prefill ms beside its FLOP bound, decode ms a step beside
+   its byte bound, tokens/s, peak memory, a ``torch.profiler`` window of 4
+   decode steps (busy share, kernels a step); oracles: (i) the last step of
+   a decode teacher-forced with the generated tokens equals a re-prefill
+   of prompt + generated tokens, (ii) the card equals the card machine's
+   CPU (batch 2, prompt 32, 4 teacher-forced steps, weights copied), each
+   in float32 (weights upcast on both sides) at 0.15 and in bf16 at rtol
+   0.15 and atol 0.15 or twice the reference's own bf16 noise
+   (``ORACLE_TOL``), each also rejecting planted faults (zeroed, negated,
+   shifted logits), MoE routing pinned between the runs except at
+   near-ties; (iii) finite logits, tokens in range;
+   (iv) no sync kernel launched.
 
 Phases 4–5 are the sync engines' main path, phase 6 its batched form,
 phase 7 the lex-pair one (the elementwise kernels' users), phase 8 the
 observability path and phase 9 the sharded one (the runtime launches no
-kernel): the launch counters are zeroed before and read after
-each. Prints
+kernel), phase 11 the model side's (which launches none of them): the
+launch counters are zeroed before and read after each. Prints
 per-phase seconds, one ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``; exits non-zero, without that line, if anything fails or no card
@@ -2962,6 +2982,531 @@ def launch_probe(tag, log):
           flush=True)
 
 
+# -- phase 11: the model side's server (plain PyTorch, no sync kernel) ----------
+
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
+# The oracles hold two evaluations of the same logits: (i) the last step
+# of a decode teacher-forced with the generated tokens against a re-prefill
+# of prompt + generated tokens; (ii) the card against the card machine's
+# CPU (same weights, copied, and inputs). Each is held twice, in the form
+# of the JAX package's tests/test_model_correctness.py::
+# test_decode_matches_prefill (allclose, rtol = atol = 0.15):
+# - with the weights upcast to float32 on both sides (caches keep the JAX
+#   layout's bf16 fields), at 0.15: the sharp check;
+# - as served, in bf16, at rtol 0.15 and atol 0.15 or, where the
+#   reference's own bf16 rounding noise is larger, twice that noise: the
+#   largest distance between the reference's bf16 logits and its float32
+#   twin's on the same inputs — for (i) the re-prefill's, for (ii) the
+#   CPU's, never the output under test. Two bf16 evaluations that sum in
+#   other orders (cuBLAS against oneDNN, one token against 2,080) each lie
+#   about that far from the float32 value, so they can lie twice as far
+#   apart (the triangle inequality). A deep random-weight stack amplifies
+#   rounding: rwkv6-1.6b's 24 layers carry ~1 logit of bf16 noise against
+#   their float32 twin, and the JAX package's own bf16 gap between decode
+#   and re-prefill grows with depth as the port's does
+#   (tests/test_torch_serve_gap.py, PERF.md §6).
+# Every comparison must also reject planted faults of the output under
+# test (zeroed, negated, shifted by one along the vocabulary): a tolerance
+# that would pass them fails the run.
+ORACLE_TOL = 0.15
+# an MoE token may take other experts in two runs only where its k-th and
+# (k+1)-th router probabilities lie within 8 bf16 epsilons of each other
+ROUTE_GAP = 8 * 2.0 ** -7
+# request mixes: (batch, prompt, new tokens)
+MIXES = {"R1": (4, 32, 16), "R2": (8, 2048, 32), "cut": (4, 512, 16)}
+# (arch, cut to one pattern group, mixes)
+SERVE_PLAN = (
+    ("qwen3-0.6b", False, ("R1", "R2")),
+    ("recurrentgemma-2b", False, ("R2",)),
+    ("rwkv6-1.6b", False, ("R2",)),
+    ("gemma2-27b", True, ("cut",)),
+    ("qwen2.5-14b", True, ("cut",)),
+    ("deepseek-coder-33b", True, ("cut",)),
+    ("mixtral-8x22b", True, ("cut",)),
+    ("qwen3-moe-30b-a3b", True, ("cut",)),
+    ("musicgen-large", True, ("cut",)),
+    ("internvl2-26b", True, ("cut",)),
+)
+
+
+class PinnedRouting:
+    """Records each MoE call's top-k experts (``record``) and pins a later
+    run to them (``replay``, in the same call order), so that two runs
+    that differ only by bf16 noise route alike. A replayed token may have
+    chosen other experts itself only at a near-tie (``ROUTE_GAP``);
+    anything else fails ``check``. Patches ``repro_torch.models.moe.top_k``
+    while entered."""
+
+    def __init__(self, check, tag):
+        self.check, self.tag = check, tag
+        self.calls, self.pinned, self.flips = [], None, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._real = moe.top_k
+        moe.top_k = self._top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.top_k = self._real
+
+    def replay(self, calls):
+        self.pinned = list(calls)
+
+    def _top_k(self, probs, k):
+        import torch
+
+        vals, idx = self._real(probs, k)
+        if self.pinned is None:
+            self.calls.append(idx)
+            return vals, idx
+        want = self.pinned.pop(0).to(idx.device)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = (top[..., k - 1] - top[..., k]) / top[..., k - 1]
+        moved = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+        self.flips += int(moved.sum())
+        self.check(not bool((moved & (gap > ROUTE_GAP)).any()),
+                   f"{self.tag}: an MoE token changed experts with its "
+                   f"router's top-k gap above {ROUTE_GAP}")
+        return torch.gather(probs, -1, want), want
+
+
+def drop_free(cfg):
+    """An MoE config whose capacity holds every token (cap = t), so that
+    no token's experts depend on the others' (oracle (i))."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=e / k))
+
+
+def serve_inputs(cfg, b, total, seed, dev):
+    """Seeded inputs of ``total`` positions: tokens, or frame embeddings
+    (audio), or patch embeddings and tokens (vision)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = cfg.frontend_len if cfg.frontend == "vision" else 0
+    out = {}
+    if cfg.frontend is not None:
+        n = total if cfg.frontend == "audio" else f
+        out["embeds"] = torch.tensor(rng.normal(size=(b, n, cfg.d_model)),
+                                     dtype=torch.bfloat16, device=dev)
+    if cfg.frontend != "audio":
+        out["tokens"] = torch.tensor(
+            rng.integers(0, cfg.vocab_size, (b, total - f)),
+            dtype=torch.int32, device=dev)
+    return out
+
+
+def prompt_and_steps(cfg, batch, p, n):
+    """(the first ``p`` positions, the next ``n`` step inputs)."""
+    if cfg.frontend == "audio":
+        e = batch["embeds"]
+        return {"embeds": e[:, :p]}, [{"embeds": e[:, p + i:p + i + 1]}
+                                      for i in range(n)]
+    tok = batch["tokens"]
+    f = tok.shape[1] - n                    # prompt tokens (vision: p - F)
+    prompt = dict(batch, tokens=tok[:, :f])
+    return prompt, [{"tokens": tok[:, f + i:f + i + 1]} for i in range(n)]
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_loop(cfg, model, prompt, steps, n, profiled=None):
+    """Prefill ``prompt`` into a cache for ``n`` more positions, then ``n``
+    decode steps fed ``steps[i]`` (or, with ``steps`` None, the greedy
+    token), on the model's device. Returns (logits of every step [B,
+    n + 1, V] — prefill's last position first, generated tokens [B, n],
+    prefill s, decode s; host clock around a synchronised device). With
+    ``profiled`` (a dict), the last 4 steps run under ``torch.profiler``
+    and it receives their device-busy share and kernels a step."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import steps as TS
+
+    dev = model.embed.device
+    decode = TS.make_decode(cfg)
+    b = next(iter(prompt.values())).shape[0]
+    p = TS._total_len(cfg, prompt)
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = TT.init_cache(cfg, b, p + n, device=dev)
+        feats, cache, _ = TT.forward(cfg, model, prompt, mode="prefill",
+                                     cache=cache)
+        logits = [TT.lm_head(cfg, model, feats[:, -1:])]
+    sync(dev)
+    t1 = time.perf_counter()
+    gen = []
+    window = contextlib.nullcontext()
+    for i in range(n):
+        if profiled is not None and i == n - 4:
+            sync(dev)
+            window = decode_profile(profiled)
+            window.__enter__()
+        tok = torch.argmax(logits[-1][:, -1], dim=-1).to(torch.int32)[:, None]
+        gen.append(tok)
+        step = steps[i] if steps is not None else {"tokens": tok}
+        lg, cache = decode(model, cache, step, p + i)
+        logits.append(lg)
+    sync(dev)
+    window.__exit__(None, None, None)
+    return (torch.cat(logits, dim=1), torch.cat(gen, dim=1), t1 - t0,
+            time.perf_counter() - t1)
+
+
+class decode_profile:
+    """``torch.profiler`` over a window of 4 decode steps (the window ends
+    after a synchronise): fills ``out`` with the wall and device ms, the
+    device's busy share and the kernels launched a step, or ``error``."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        # kernels only: host-side op events would multiply the trace (and
+        # its processing) by the ~3,000 launches a step
+        self.prof = None
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as err:  # noqa: BLE001 - becomes a failed check
+            self.out["error"] = repr(err)
+            return
+        self.prof = prof
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        if self.prof is None:
+            return
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(*exc)
+        try:
+            rows = [(e.self_device_time_total / 1e3, e.count)
+                    for e in self.prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+        except Exception as err:  # noqa: BLE001 - becomes a failed check
+            self.out["error"] = repr(err)
+            return
+        device_ms = sum(r[0] for r in rows)
+        self.out.update(wall_ms_4_steps=wall_ms, device_ms_4_steps=device_ms,
+                        busy_share=device_ms / wall_ms,
+                        launches_per_step=sum(r[1] for r in rows) / 4)
+
+
+def float32_twin(model):
+    """The model with its weights upcast to float32 (a copy)."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import tree_map
+
+    return TT.Decoder(model.cfg, tree_map(lambda _, t: t.float(),
+                                          model.tensors()))
+
+
+def held(check, tag, got, want, atol):
+    """``got`` within ``allclose(rtol=ORACLE_TOL, atol=atol)`` of ``want``,
+    and planted faults of ``got`` outside it (zeroed, negated, shifted by
+    one along the vocabulary); returns the largest |got - want|."""
+    import torch
+
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=ORACLE_TOL, atol=atol),
+          f"{tag}: differ by {err:.4f} (atol {atol:.4f}, rtol {ORACLE_TOL})")
+    for name, bad in (("zeroed", torch.zeros_like(got)), ("negated", -got),
+                      ("shifted", got.roll(1, -1))):
+        check(not torch.allclose(bad, want, rtol=ORACLE_TOL, atol=atol),
+              f"{tag}: a {name} output would pass (atol {atol:.4f})")
+    return err
+
+
+def hold_pair(check, tag, bf16, f32):
+    """Oracle (i)'s two precisions: each ``(got, want)`` logits, ``got``
+    the decode's, ``want`` the re-prefill's. float32 at ``ORACLE_TOL``;
+    bf16 at atol ``ORACLE_TOL`` or twice the re-prefill's bf16 noise (its
+    bf16 ``want`` against its float32 ``want``). Returns (errors, bf16
+    atol)."""
+    err = {"noise": float((bf16[1] - f32[1]).abs().max())}
+    tol = max(ORACLE_TOL, 2 * err["noise"])
+    err["f32"] = held(check, f"{tag} float32 decode vs re-prefill", *f32,
+                      ORACLE_TOL)
+    err["bf16"] = held(check, f"{tag} bf16 decode vs re-prefill", *bf16, tol)
+    return err, tol
+
+
+def active_params(cfg, model, tokens):
+    """Non-embedding parameters a token uses (MoE: its top_k experts), and
+    the bytes of the weights that ``tokens`` tokens can reach: every weight
+    but the experts, of each MoE layer's experts min(E, tokens x top_k)
+    (the most that distinct routes can touch), the head's matrix whole."""
+    n_active, nbytes = 0, 0
+    for layer in model.layers:
+        for name, t in layer.named_parameters():
+            share = 1.0
+            if name.startswith("moe_"):
+                e, k = cfg.moe.num_experts, cfg.moe.top_k
+                share = k / e
+                nbytes += t.numel() * t.element_size() \
+                    * min(e, tokens * k) / e
+            else:
+                nbytes += t.numel() * t.element_size()
+            n_active += t.numel() * share
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    nbytes += head.numel() * head.element_size() \
+        + model.final_norm.numel() * model.final_norm.element_size()
+    return n_active, nbytes
+
+
+def serve_bounds(cfg, model, b, p, cache):
+    """(prefill bound ms, what bounds it), decode bound ms per step, the
+    prefill's FLOPs, a decode step's weight bytes, the cache bytes: the
+    prefill's FLOPs — 2 x active non-embedding params x tokens, the causal
+    (windowed) attention pairs' QK and PV products, the head on the last
+    position — at the dense bf16 rate, or the bytes of the weights its b x
+    p tokens reach at 3.35 TB/s if larger; a decode step's bytes — the
+    weights its b tokens reach (``active_params``) and the whole cache,
+    read once — at 3.35 TB/s."""
+    n_active, pre_bytes = active_params(cfg, model, b * p)
+    _, wbytes = active_params(cfg, model, b)
+    flops = 2.0 * n_active * b * p + 2.0 * cfg.d_model * cfg.vocab_size * b
+    for kind in cfg.layer_kinds:
+        if kind in ("global", "local"):
+            w = cfg.window if kind == "local" else p
+            pairs = sum(min(i + 1, w) for i in range(p))
+            flops += 2 * 2.0 * b * cfg.num_heads * cfg.head_dim * pairs
+    cbytes = sum(t.numel() * t.element_size() for c in cache
+                 for t in c.values())
+    f_ms = flops / BF16_FLOPS_PER_S * 1e3
+    b_ms = pre_bytes / HBM_BYTES_PER_S * 1e3
+    pre = (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+    return pre, (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3, flops, wbytes, \
+        cbytes
+
+
+def serve_mix(check, smi, arch, cfg, model, mix, dev):
+    """One request mix: the timed run (``generate`` for text, the same
+    greedy loop through ``forward`` for the frontends, audio fed the next
+    frames), after a warm-up run; its bounds and decode profile; oracles
+    (i) and (iii). The float32 twin of (i) is made after the timed run,
+    so that the peak is the server's alone."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+
+    tag = f"{arch} {mix}"
+    b, p, n = MIXES[mix]
+    cuda = torch.device(dev).type == "cuda"
+    t_run = time.perf_counter()
+    if cfg.frontend is None:
+        sr = serve.ServeRun(cfg, batch=b, prompt_len=p, max_new_tokens=n)
+        serve.generate(sr, params=model, device=dev)       # warm-up
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        gen, stats = serve.generate(sr, params=model, device=dev)
+        prompt = {"tokens": torch.as_tensor(np.random.default_rng(
+            sr.seed).integers(0, cfg.vocab_size, (b, p)), dtype=torch.int32,
+            device=dev)}
+        steps = [{"tokens": gen[:, i:i + 1]} for i in range(n)]
+        full = {"tokens": torch.cat([prompt["tokens"], gen], dim=1)}
+    else:
+        batch = serve_inputs(cfg, b, p + n, 0, dev)
+        prompt, steps = prompt_and_steps(cfg, batch, p, n)
+        fed = steps if cfg.frontend == "audio" else None
+        serve_loop(cfg, model, prompt, fed, n)             # warm-up
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _, gen, pre_s, dec_s = serve_loop(cfg, model, prompt, fed, n)
+        stats = {"prefill_s": pre_s, "decode_s": dec_s,
+                 "tokens_per_s": b * n / dec_s}
+        if cfg.frontend == "vision":
+            steps = [{"tokens": gen[:, i:i + 1]} for i in range(n)]
+            full = dict(prompt, tokens=torch.cat([prompt["tokens"], gen], 1))
+        else:
+            full = batch
+    peak = torch.cuda.max_memory_allocated() if cuda else float("nan")
+    t_run = time.perf_counter() - t_run
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{tag}: a token outside [0, {cfg.vocab_size})")
+
+    # (i) teacher-forced decode == re-prefill of prompt + generated tokens,
+    # MoE at a drop-free capacity with the re-prefill pinned to the
+    # decode's routing; in bf16 and float32
+    t_i = time.perf_counter()
+    cfg_o = drop_free(cfg)
+    total = p + n
+    chunk = max(c for c in range(1, cfg.attn_q_chunk + 1) if total % c == 0)
+    cfg_r = dataclasses.replace(cfg_o, attn_q_chunk=chunk,
+                                attn_kv_chunk=chunk)
+    m = sum(1 for k in cfg.layer_kinds if k != "rwkv")
+    res, prof = {}, {}
+    twin = float32_twin(model)
+    with PinnedRouting(check, f"{tag} (i)") as route:
+        for prec, mod in (("bf16", model), ("f32", twin)):
+            if prec == "f32":          # route as the bf16 run did
+                route.replay(decode_routes + prefill_routes)
+            logits, _, _, _ = serve_loop(
+                cfg_o, mod, prompt, steps, n,
+                profiled=prof if prec == "bf16" else None)
+            if prec == "bf16":
+                decode_routes = list(route.calls)
+                prefill_routes = [torch.cat(
+                    [decode_routes[l]] + [decode_routes[m * (1 + j) + l]
+                                          for j in range(n)], 1)
+                    for l in range(m)] if cfg.moe is not None else []
+                route.replay(prefill_routes)
+            with torch.no_grad():
+                feats, _ = TT.forward(cfg_r, mod, full, mode="train")
+                want = TT.lm_head(cfg_r, mod, feats[:, -1:])
+            check(bool(torch.isfinite(logits.float()).all())
+                  and bool(torch.isfinite(want.float()).all()),
+                  f"{tag} (i) {prec}: a logit is not finite")
+            res[prec] = (logits[:, -1:].float(), want.float())
+    del twin
+    check("error" not in prof and prof.get("device_ms_4_steps", 0) > 0,
+          f"serve profile {tag}: {prof.get('error', 'no device time')}")
+    err, tol = hold_pair(check, f"{tag} (i)", res["bf16"], res["f32"])
+    t_i = time.perf_counter() - t_i
+
+    (pre_b, pre_by), dec_b, flops, wbytes, cbytes = serve_bounds(
+        cfg, model, b, p, TT.init_cache(cfg, b, p + n, device="meta"))
+    out = {"batch": b, "prompt": p, "new_tokens": n, **stats,
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_step": stats["decode_s"] / n * 1e3,
+           "prefill_bound_ms": pre_b, "prefill_bound_by": pre_by,
+           "prefill_flops": flops, "decode_weight_bytes": wbytes,
+           "cache_bytes": cbytes, "decode_bound_ms_per_step": dec_b,
+           "peak_gib": peak / 2 ** 30, "decode_vs_prefill": err,
+           "bf16_tolerance_i": tol,
+           "moe_route_flips_i": route.flips, "profile": prof,
+           "seconds": {"run": t_run, "oracle_i": t_i},
+           "nvidia_smi": smi}
+    print(f"serve {tag}: B={b} prompt {p} +{n}: prefill "
+          f"{out['prefill_ms']:.2f} ms (bound {pre_b:.3f} ms, {pre_by}); "
+          f"decode {out['decode_ms_per_step']:.3f} ms/step (byte bound "
+          f"{dec_b:.3f}); {stats['tokens_per_s']:.1f} tok/s; peak "
+          f"{out['peak_gib']:.2f} GiB; 4 decode steps busy "
+          f"{prof.get('busy_share', float('nan')):.1%}, "
+          f"{prof.get('launches_per_step', float('nan')):.0f} launches a "
+          f"step; (i) decode vs re-prefill bf16 {err['bf16']:.4f} "
+          f"(atol {tol:.4f}: the re-prefill's bf16 noise "
+          f"{err['noise']:.4f}), float32 "
+          f"{err['f32']:.4f}; s: run {t_run:.1f}, (i) {t_i:.1f} [{smi}]",
+          flush=True)
+    return out
+
+
+def serve_card_cpu(check, smi, arch, cfg, model, dev):
+    """(ii) the card against the card machine's CPU: batch 2, prompt 32
+    (after the patch positions of a vision config), 4 teacher-forced steps,
+    the weights copied to the CPU, in bf16 and as float32 twins on both
+    sides, MoE routing pinned to the card's bf16 run (near-ties
+    excepted)."""
+    import torch
+
+    f = cfg.frontend_len if cfg.frontend == "vision" else 0
+    batch = serve_inputs(cfg, 2, f + 36, 1, "cpu")
+    prompt, steps = prompt_and_steps(cfg, batch, f + 32, 4)
+
+    def on(d, x):
+        return {k: v.to(d) for k, v in x.items()}
+
+    with PinnedRouting(check, f"{arch} (ii)") as route:
+        card, _, _, _ = serve_loop(cfg, model, on(dev, prompt),
+                                   [on(dev, s) for s in steps], 4)
+        route.replay(route.calls)
+        twin = float32_twin(model)
+        card32, _, _, _ = serve_loop(cfg, twin, on(dev, prompt),
+                                     [on(dev, s) for s in steps], 4)
+        del twin
+        route.replay(route.calls)
+        cpu_model = model.copy_to("cpu")
+        t0 = time.perf_counter()
+        cpu, _, _, _ = serve_loop(cfg, cpu_model, prompt, steps, 4)
+        route.replay(route.calls)
+        cpu32, _, _, _ = serve_loop(cfg, float32_twin(cpu_model), prompt,
+                                    steps, 4)
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+    card, card32 = card.float().cpu(), card32.float().cpu()
+    cpu, cpu32 = cpu.float(), cpu32.float()
+    check(bool(torch.isfinite(card).all())
+          and bool(torch.isfinite(card32).all()),
+          f"{arch} (ii): a card logit is not finite")
+    noise = float((cpu - cpu32).abs().max())
+    tol = max(ORACLE_TOL, 2 * noise)
+    err32 = held(check, f"{arch} (ii) float32 card vs CPU", card32, cpu32,
+                 ORACLE_TOL)
+    err = held(check, f"{arch} (ii) bf16 card vs CPU", card, cpu, tol)
+    card_noise = float((card - card32).abs().max())
+    print(f"serve {arch} (ii): card = CPU within {err32:.4f} in float32 "
+          f"(tolerance {ORACLE_TOL}), {err:.4f} in bf16 (atol {tol:.4f}: "
+          f"the CPU's bf16 noise {noise:.4f}; the card's {card_noise:.4f}); "
+          f"{route.flips} MoE near-tie routes pinned; CPU {cpu_s:.1f} s "
+          f"[{smi}]", flush=True)
+    return {"card_cpu": err, "card_cpu_f32": err32, "cpu_bf16_noise": noise,
+            "card_bf16_noise": card_noise, "bf16_tolerance_ii": tol,
+            "moe_route_flips_ii": route.flips, "cpu_s": cpu_s}
+
+
+def serve_phase(check, log, smi, dev):
+    """Phase 11: every architecture through the server at its full width
+    (``SERVE_PLAN``: whole, or one pattern group deep), each request mix
+    timed against its bounds and held to oracles (i)–(iii); weights from
+    seed 0 drawn on the card. Launches no sync kernel (oracle (iv), read by
+    ``main``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+
+    out = {}
+    for arch, cut, mixes in SERVE_PLAN:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=full.pattern_len) \
+            if cut else full
+        model = TT.init_params(cfg, seed=0, device=dev)
+        row = {"layers": cfg.num_layers, "of_layers": full.num_layers}
+        for mix in mixes:
+            row[mix] = serve_mix(check, smi, arch, cfg, model, mix, dev)
+        row.update(serve_card_cpu(check, smi, arch, cfg, model, dev))
+        del model
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        print(f"serve {arch}: {cfg.num_layers} of {full.num_layers} layers, "
+              f"{row['seconds']:.1f} s", flush=True)
+        out[arch] = row
+    log["serve"] = out
+
+
 # -- driver ----------------------------------------------------------------------
 
 SOURCES = {
@@ -3033,8 +3578,8 @@ def main() -> int:
     if sys.argv[1:] == ["--cards"]:
         return cards_main()
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (takes none, "
-              f"or --cards)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (takes none or "
+              f"--cards)", file=sys.stderr)
         return 2
     from repro_torch import kernels
     from repro_torch.kernels import _build
@@ -3173,6 +3718,12 @@ def main() -> int:
                                    f"sharded path")
     timed("profile", profile_phase, check, log)
     launch_probe("after the profiles", log)
+    # 11. the model side's server (plain PyTorch): no kernel of the eight
+    # is launched there (oracle iv)
+    kernels.reset_launches()
+    timed("serve", serve_phase, check, log, smi, dev)
+    served = kernels.launch_counts()
+    check(not any(served.values()), f"the serving path launched {served}")
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

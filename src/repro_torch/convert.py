@@ -16,6 +16,13 @@ after the config and node axes in the JAX package: per-origin buffers
 uint32 in numpy, int32 bit-views in torch (same bits). Bool (GSet) stays
 bool. A tuple state (an LWWMap's ``(t, v)``, a product's components) and
 its buffers cross leaf by leaf, each leaf's slot axis swapped alike.
+
+The model side's trees cross too: a JAX parameter tree or cache (numpy
+leaves; bfloat16 arrives as numpy's ``bfloat16`` extension type) has one
+stacked dict per pattern position (``blocks``, leading axis the group)
+and the ``tail`` layers; the port has one module (or cache dict) a layer
+in stack order. ``params_to_torch`` and ``cache_to_torch`` unstack, and
+``cache_to_numpy`` stacks back (bf16 leaves as float32, exactly).
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ def _leaf_to_torch(a, device):
     a = np.array(a, order="C")          # a writable, contiguous copy
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' type: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -100,3 +110,48 @@ def topology_to_torch(name: str, nbrs, mask, rev) -> Topology:
 def topology_to_numpy(topo: Topology):
     """The port's topology -> ``(nbrs, mask, rev)`` numpy tables."""
     return topo.nbrs.numpy(), topo.mask.numpy(), topo.rev.numpy()
+
+
+def _unstack(cfg, tree):
+    """A JAX ``{"blocks": [...], "tail": [...]}`` tree -> one dict a layer
+    in stack order (group g's layer i takes ``blocks[i][...][g]``)."""
+    layers = [{k: v[g] for k, v in tree["blocks"][i].items()}
+              for g in range(cfg.num_groups) for i in range(cfg.pattern_len)]
+    return layers + list(tree["tail"])
+
+
+def params_to_torch(cfg, params, device="cpu"):
+    """A JAX parameter tree (numpy leaves) -> the port's ``Decoder`` on
+    ``device`` (tied or untied head as the tree has it)."""
+    from repro_torch.models.transformer import Decoder
+
+    def t(a):
+        return _leaf_to_torch(a, device)
+
+    tensors = {k: t(params[k]) for k in ("embed", "final_norm", "lm_head")
+               if k in params}
+    tensors["layers"] = [{k: t(v) for k, v in layer.items()}
+                         for layer in _unstack(cfg, params)]
+    return Decoder(cfg, tensors)
+
+
+def cache_to_torch(cfg, cache, device="cpu"):
+    """A JAX cache (numpy leaves) -> the port's list of per-layer dicts."""
+    return [{k: _leaf_to_torch(v, device) for k, v in layer.items()}
+            for layer in _unstack(cfg, cache)]
+
+
+def cache_to_numpy(cfg, cache):
+    """The port's cache -> the JAX layout (``blocks`` stacked over groups,
+    ``tail``) as numpy arrays; bf16 leaves become float32 (exact)."""
+
+    def n(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    p, g = cfg.pattern_len, cfg.num_groups
+    blocks = [{k: np.stack([n(cache[gi * p + i][k]) for gi in range(g)])
+               for k in cache[i]} for i in range(p)] if g else []
+    return {"blocks": blocks,
+            "tail": [{k: n(v) for k, v in layer.items()}
+                     for layer in cache[g * p:]]}

@@ -9,8 +9,8 @@ gives global tokens-consumed metrics with no barrier. Both keep their
 state on ``device`` (the card unless ``device="cpu"``).
 
 The synthetic token pipeline of the JAX module (``DataConfig``,
-``synth_block``, ``batch_for_step``) feeds the model side and is not part
-of this package.
+``synth_block``, ``batch_for_step``) feeds the model side's training and
+comes with the training slice (ROADMAP A6b).
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Device meshes over the batch axes of sweeps and stores (PyTorch)."""
+"""Device meshes over the batch axes of sweeps and stores (``mesh``), and
+the model side's batched server (``serve``), in PyTorch."""

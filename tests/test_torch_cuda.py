@@ -764,3 +764,117 @@ def test_sharded_runs_over_several_cards(sm90, algo):
         assert got.final_x.device == torch.device("cuda", 0)
         assert torch.equal(got.final_x.cpu(), want.final_x)
         assert torch.equal(got_sw.final_x.cpu(), want_sw.final_x)
+
+
+# -- the model side: the decoder stack and the server on the card ---------------
+
+# Card and CPU round the same bf16 operations but sum products in other
+# orders (cuBLAS against oneDNN), so a value may differ by an ulp in any
+# layer: 8 bf16 epsilons (0.0625, atol = rtol), as the CPU parity tests
+# hold the port to the JAX package.
+MODEL_TOL = 8 * torch.finfo(torch.bfloat16).eps
+
+
+def _model_inputs(cfg, b, s, rng):
+    from repro_torch.models import transformer as TT
+
+    f = cfg.frontend_len if cfg.frontend == "vision" else 0
+    batch = {}
+    if cfg.frontend is not None:
+        n = s if cfg.frontend == "audio" else f
+        batch["embeds"] = torch.tensor(rng.normal(size=(b, n, cfg.d_model)),
+                                       dtype=torch.bfloat16)
+    if cfg.frontend != "audio":
+        batch["tokens"] = torch.tensor(
+            rng.integers(0, cfg.vocab_size, (b, s - f)), dtype=torch.int32)
+    return TT, batch
+
+
+def _close(got, want, what):
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=MODEL_TOL, atol=MODEL_TOL, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-coder-33b", "gemma2-27b",
+                                  "qwen3-0.6b", "qwen2.5-14b",
+                                  "mixtral-8x22b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b",
+                                  "musicgen-large", "internvl2-26b"])
+def test_model_on_the_card_matches_the_cpu(sm90, arch, rng):
+    """Every smoke config: prefill (logits, cache) and 6 decode steps on the
+    card against the CPU run with the same weights (copied, not redrawn)
+    and inputs; then, for the text configs, ``generate``'s tokens equal
+    wherever the CPU step's top-1/top-2 margin exceeds twice the
+    tolerance. No sync kernel is launched."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.train import steps as TS
+
+    cfg = get_smoke_config(arch)
+    TT, batch = _model_inputs(cfg, 2, 24, rng)
+    card = TT.init_params(cfg, seed=0, device=sm90)
+    cpu = card.copy_to("cpu")
+    before = kernels.launch_counts()
+    prefill, decode = TS.make_prefill(cfg), TS.make_decode(cfg)
+    steps = 6
+    with torch.no_grad():
+        runs = []
+        for model, dev in ((cpu, "cpu"), (card, sm90)):
+            bt = {k: v.to(dev) for k, v in batch.items()}
+            cache = TT.init_cache(cfg, 2, 24 + steps, device=dev)
+            feats, cache, _ = TT.forward(cfg, model, bt, mode="prefill",
+                                         cache=cache)
+            logits = [TT.lm_head(cfg, model, feats[:, -1:])]
+            for i in range(steps):
+                if cfg.frontend == "audio":
+                    step = {"embeds": batch["embeds"][:, i:i + 1].to(dev)}
+                else:
+                    step = {"tokens": torch.full((2, 1), 7 + i,
+                                                 dtype=torch.int32,
+                                                 device=dev)}
+                lg, cache = decode(model, cache, step, 24 + i)
+                logits.append(lg)
+            runs.append((logits, convert.cache_to_numpy(cfg, cache)))
+    (want, want_cache), (got, got_cache) = runs
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.device.type == "cuda"
+        _close(g, w, f"{arch} step {i}")
+    def leaves(c):
+        return [leaf for layer in c["blocks"] + c["tail"]
+                for leaf in layer.values()]
+
+    for i, (g, w) in enumerate(zip(leaves(got_cache), leaves(want_cache))):
+        _close(torch.from_numpy(g), torch.from_numpy(w),
+               f"{arch} cache leaf {i}")
+    lg, _ = prefill(card, {k: v.to(sm90) for k, v in batch.items()})
+    _close(lg, want[0], f"{arch} make_prefill")
+    if cfg.frontend is None:
+        sr = serve.ServeRun(cfg=cfg)
+        g_card, _ = serve.generate(sr, params=card, device=sm90)
+        g_cpu, _ = serve.generate(sr, params=cpu, device="cpu")
+        assert g_card.device.type == "cuda"
+        # the CPU steps' logits, teacher-forced with its own tokens
+        prompts = torch.as_tensor(np.random.default_rng(sr.seed).integers(
+            0, cfg.vocab_size, (sr.batch, sr.prompt_len)), dtype=torch.int32)
+        with torch.no_grad():
+            cache = TT.init_cache(cfg, sr.batch, sr.prompt_len
+                                  + sr.max_new_tokens, device="cpu")
+            feats, cache, _ = TT.forward(cfg, cpu, {"tokens": prompts},
+                                         mode="prefill", cache=cache)
+            step_logits = [TT.lm_head(cfg, cpu, feats[:, -1:])[:, 0]]
+            for i in range(sr.max_new_tokens - 1):
+                lg, cache = decode(cpu, cache, {"tokens": g_cpu[:, i:i + 1]},
+                                   sr.prompt_len + i)
+                step_logits.append(lg[:, 0])
+        top2 = torch.stack(step_logits, 1).float().topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        got_t, want_t = g_card.cpu(), g_cpu
+        for b in range(sr.batch):
+            for i in range(sr.max_new_tokens):
+                if margin[b, i] > 2 * MODEL_TOL:
+                    assert got_t[b, i] == want_t[b, i], (arch, b, i)
+                elif got_t[b, i] != want_t[b, i]:
+                    break
+    assert kernels.launch_counts() == before

@@ -6,9 +6,12 @@ without a card, ``simulate`` with no ``device=`` raises instead of falling
 back to the CPU, for the δ-family, a faulted resync run and an LWWMap run
 alike, and so do ``simulate_sweep``, ``simulate_store``, the gossip runtime
 (``GossipNode``, ``CheckpointRegistry``, ``ShardLedger``,
-``ProgressCounter``) and ``elastic_churn``."""
+``ProgressCounter``), ``elastic_churn`` and the model side's server
+(``generate``, ``init_params``, ``init_cache``, ``python -m
+repro_torch.launch.serve``)."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -21,8 +24,6 @@ SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
 
 
 def run_python(code, **env):
-    import os
-
     full = dict(os.environ, PYTHONPATH=str(REPO / "src"), **env)
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full,
                           capture_output=True, text=True, timeout=120)
@@ -135,3 +136,39 @@ def test_entry_points_default_to_the_card():
     assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
         "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \
         "'round_recv', 'round_step']" in out.stdout, out.stdout
+
+
+def test_serving_defaults_to_the_card():
+    """The model side's entry points (``generate``, ``init_params``,
+    ``init_tree``, ``init_cache``, ``python -m repro_torch.launch.serve``)
+    raise without a card unless given ``device="cpu"``."""
+    code = (
+        "import torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models import params, transformer\n"
+        "assert not torch.cuda.is_available()\n"
+        "cfg = get_smoke_config('qwen3-0.6b')\n"
+        "sr = serve.ServeRun(cfg, batch=1, prompt_len=4, max_new_tokens=2)\n"
+        "for run in (lambda **k: serve.generate(sr, **k),\n"
+        "            lambda **k: transformer.init_params(cfg, **k),\n"
+        "            lambda **k: params.init_tree(\n"
+        "                transformer.layer_param_defs(cfg), **k),\n"
+        "            lambda **k: transformer.init_cache(cfg, 1, 4, **k)):\n"
+        "    try:\n"
+        "        run()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', e)\n"
+        "    run(device='cpu')\n"
+        "print('CPU', tuple(serve.generate(sr, device='cpu')[0].shape))\n")
+    out = run_python(code, CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("RAISED no CUDA device") == 4, out.stdout
+    assert "CPU (1, 2)" in out.stdout, out.stdout
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    assert cli.returncode != 0 and "no CUDA device" in cli.stderr
+    assert cli.stdout == ""
