@@ -137,13 +137,41 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    (``ORACLE_TOL``), each also rejecting planted faults (zeroed, negated,
    shifted logits), MoE routing pinned between the runs except at
    near-ties; (iii) finite logits, tokens in range;
-   (iv) no sync kernel launched.
+   (iv) no sync kernel launched;
+12. the model side's trainer (plain PyTorch; the launch counters zeroed
+   and read: no kernel of the eight launches), weights from seed 0 drawn
+   on the card: (a) qwen3-0.6b whole at full width (28 layers, remat
+   ``"nothing"``), sequence 4,096 (the registry's ``train_4k``), batch 4
+   (cut from 256), ``make_train_step`` at microbatches 1 and 2, each a
+   warm-up step then 3 timed: ms/step beside the FLOP bound (6 × active
+   non-embedding params × tokens, 3 × the causal attention pairs' FLOPs,
+   3 × the head's, at 989 TFLOP/s bf16), tokens/s, peak memory, one
+   profiled step (busy share, kernels a step); oracles: a finite step-1
+   loss within 1 of ln V, the microbatched loss within rtol 5e-3 and its
+   first moments within 5e-2 of the unbatched step's (lr 0, no decay), the
+   reference's dtype rule (bf16 params after an unbatched step, float32
+   after a microbatched one); (b) every architecture one pattern group
+   deep at full width, one step, the card against the card machine's CPU
+   (batch 2, 32 positions after any patches, weights drawn on the card and
+   copied, MoE routing pinned, remat off; the CPU's halves on a worker
+   thread, beside (a) for the models drawn before it): in float32 the
+   loss, every gradient leaf (rtol and
+   atol 1e-3 of the leaf's largest entry) and the params after one AdamW
+   step (atol = rtol = 1e-4 where the clipped gradient is at least 1e-6,
+   2·lr below), the AdamW part where its 7 float32 copies fit in 12 GiB of
+   host memory; in bf16 the loss and every gradient leaf (in L2) within
+   twice the CPU's own bf16 noise; each comparison rejects a zeroed, a
+   negated and a
+   shifted leaf; (c) ``python -m repro_torch.train_100m``'s default run
+   (qwen3-100m, 200 steps, batch 8, seq 256, checkpoints every 50; the
+   loss must fall), its step-100 bundle resumed to 200 against the
+   uninterrupted run within 2e-2.
 
 Phases 4–5 are the sync engines' main path, phase 6 its batched form,
 phase 7 the lex-pair one (the elementwise kernels' users), phase 8 the
 observability path and phase 9 the sharded one (the runtime launches no
-kernel), phase 11 the model side's (which launches none of them): the
-launch counters are zeroed before and read after each. Prints
+kernel), phases 11 and 12 the model side's (which launch none of them):
+the launch counters are zeroed before and read after each. Prints
 per-phase seconds, one ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``; exits non-zero, without that line, if anything fails or no card
@@ -159,6 +187,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3012,6 +3041,8 @@ ORACLE_TOL = 0.15
 # an MoE token may take other experts in two runs only where its k-th and
 # (k+1)-th router probabilities lie within 8 bf16 epsilons of each other
 ROUTE_GAP = 8 * 2.0 ** -7
+# each thread's active PinnedRouting
+ROUTERS = threading.local()
 # request mixes: (batch, prompt, new tokens)
 MIXES = {"R1": (4, 32, 16), "R2": (8, 2048, 32), "cut": (4, 512, 16)}
 # (arch, cut to one pattern group, mixes)
@@ -3034,8 +3065,11 @@ class PinnedRouting:
     run to them (``replay``, in the same call order), so that two runs
     that differ only by bf16 noise route alike. A replayed token may have
     chosen other experts itself only at a near-tie (``ROUTE_GAP``);
-    anything else fails ``check``. Patches ``repro_torch.models.moe.top_k``
-    while entered."""
+    anything else fails ``check``. While entered it routes the calls of
+    its own thread: ``repro_torch.models.moe.top_k`` is replaced, once, by
+    a dispatcher to the calling thread's router (the plain ``top_k`` where
+    the thread has none), so that phase 12's CPU worker and the card's
+    runs can pin routes at the same time."""
 
     def __init__(self, check, tag):
         self.check, self.tag = check, tag
@@ -3044,14 +3078,23 @@ class PinnedRouting:
     def __enter__(self):
         from repro_torch.models import moe
 
-        self._real = moe.top_k
-        moe.top_k = self._top_k
+        if not hasattr(moe.top_k, "plain"):
+            plain = moe.top_k
+
+            def dispatch(probs, k):
+                router = getattr(ROUTERS, "active", None)
+                return (plain(probs, k) if router is None
+                        else router._top_k(probs, k))
+
+            dispatch.plain = plain
+            moe.top_k = dispatch
+        self._real = moe.top_k.plain
+        self._outer = getattr(ROUTERS, "active", None)
+        ROUTERS.active = self
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import moe
-
-        moe.top_k = self._real
+        ROUTERS.active = self._outer
 
     def replay(self, calls):
         self.pinned = list(calls)
@@ -3172,12 +3215,13 @@ def serve_loop(cfg, model, prompt, steps, n, profiled=None):
 
 
 class decode_profile:
-    """``torch.profiler`` over a window of 4 decode steps (the window ends
-    after a synchronise): fills ``out`` with the wall and device ms, the
-    device's busy share and the kernels launched a step, or ``error``."""
+    """``torch.profiler`` over a window of ``steps`` steps (4 decode steps;
+    the window ends after a synchronise): fills ``out`` with the wall and
+    device ms, the device's busy share and the kernels launched a step, or
+    ``error``."""
 
-    def __init__(self, out):
-        self.out = out
+    def __init__(self, out, steps=4):
+        self.out, self.steps = out, steps
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -3210,9 +3254,11 @@ class decode_profile:
             self.out["error"] = repr(err)
             return
         device_ms = sum(r[0] for r in rows)
-        self.out.update(wall_ms_4_steps=wall_ms, device_ms_4_steps=device_ms,
-                        busy_share=device_ms / wall_ms,
-                        launches_per_step=sum(r[1] for r in rows) / 4)
+        n = self.steps
+        self.out.update({f"wall_ms_{n}_steps": wall_ms,
+                         f"device_ms_{n}_steps": device_ms,
+                         "busy_share": device_ms / wall_ms,
+                         "launches_per_step": sum(r[1] for r in rows) / n})
 
 
 def float32_twin(model):
@@ -3507,6 +3553,565 @@ def serve_phase(check, log, smi, dev):
     log["serve"] = out
 
 
+# -- phase 12: the model side's trainer (plain PyTorch, no sync kernel) ---------
+
+# (a) qwen3-0.6b whole at the registry's train_4k length; the global batch
+# cut from 256 to what one card holds in the phase's time
+TRAIN_WHOLE = ("qwen3-0.6b", 4, 4096)
+TRAIN_TIMED = 3                  # timed steps after the warm-up step
+# (b) every architecture one pattern group deep: batch 2, 32 positions
+# (phase 11 (ii)'s short prompt; a vision config's 256 patches come first)
+TRAIN_SHORT = (2, 32)
+# float32, card against CPU: reduction order only. Each leaf is held at
+# rtol 1e-3 and atol 1e-3 of its largest entry; params after one AdamW
+# step at atol = rtol = 1e-4 except where the clipped gradient is below
+# 1e-6 (Adam's first step ĝ/(|ĝ| + ε) turns on ε there; held within 2·lr)
+TRAIN_F32_TOL = 1e-3
+TRAIN_LR = 1e-3
+# the float32 AdamW part of (b) runs where its 7 float32 copies on the CPU
+# (the twin, its gradients, zero moments, the new master and moments) fit
+# in 12 GiB: the CPU's elementwise passes over them take ~4.5 s a GiB of
+# float32 weights on the H100 machine's 8 cores (deepseek-coder-33b's 3.7
+# GiB: 17.6 s), beyond the phase's time. It runs for qwen3-0.6b, rwkv6-1.6b and musicgen-large;
+# AdamW itself is held to the JAX package on the CPU
+# (tests/test_torch_train_optim.py) and runs on the card in (a) and (c).
+ADAMW_CPU_BYTES = 12 * 2 ** 30
+# the CPU results of (b) that the card's halves have not used yet, at most
+# (the worker thread waits beyond it; it runs ahead during (a))
+TRAIN_HELD_BYTES = 32 * 2 ** 30
+# the bf16 loss where twice its noise is less (one scalar is one sample
+# of the rounding): 2^-10 of it. A bf16 gradient leaf is held in L2 norm:
+# |card - CPU| within twice |CPU bf16 - CPU float32|, or one bf16 epsilon
+# of |CPU| where that is more. Two evaluations' rounding errors are
+# independent draws, so a norm over the leaf's entries estimates their
+# size steadily where its largest entry does not (on an H100 80GB HBM3,
+# the card's largest entry lay 2.7 times the CPU's noise away on
+# recurrentgemma-2b's gate leaves).
+LOSS_FLOOR = 2.0 ** -10
+BF16_EPS = 2.0 ** -7
+
+
+def train_flops(cfg, model, b, s):
+    """A training step's FLOPs: 6 × active non-embedding params × tokens
+    (forward and backward products), 3 × the causal (windowed) attention
+    pairs' QK and PV FLOPs, 3 × the head's 2·d·V per token."""
+    n_active, _ = active_params(cfg, model, b * s)
+    flops = 6.0 * n_active * b * s + 3 * 2.0 * cfg.d_model \
+        * cfg.vocab_size * b * s
+    for kind in cfg.layer_kinds:
+        if kind in ("global", "local"):
+            w = cfg.window if kind == "local" else s
+            pairs = sum(min(i + 1, w) for i in range(s))
+            flops += 3 * 2 * 2.0 * b * cfg.num_heads * cfg.head_dim * pairs
+    return flops
+
+
+def leaves_of(tree):
+    from repro_torch.optim.adamw import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def train_whole(check, smi, dev):
+    """(a) qwen3-0.6b whole at full width, seq 4,096, batch 4, remat
+    ``"nothing"``: ``make_train_step`` at microbatches 1 and 2, each a
+    warm-up step (the oracle step: ``AdamW(lr=0, weight_decay=0)``, so its
+    moments hold the clipped gradients as in the JAX package's
+    ``test_microbatched_grads_match``) and 3 timed steps (AdamW at lr 3e-4),
+    then one profiled step at microbatches 1."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import steps as TS
+
+    arch, b, s = TRAIN_WHOLE
+    cfg = get_config(arch)
+    model = TT.init_params(cfg, seed=0, device=dev)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                      seed=0)
+    batches = [batch_for_step(dcfg, 0, i, device=dev)
+               for i in range(TRAIN_TIMED + 2)]
+    oracle = AdamW(lr=constant(0.0), weight_decay=0.0)
+    optim = AdamW(lr=constant(3e-4))
+    flops = train_flops(cfg, model, b, s)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": b, "seq": s,
+           "remat": cfg.remat, "flops": flops, "flop_bound_ms": bound_ms,
+           "nvidia_smi": smi}
+    mu1 = None
+    for mb in (1, 2):
+        row = {}
+        torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = TS.make_train_step(cfg, oracle, microbatches=mb)(
+            TS.init_train_state(cfg, oracle, model), batches[0])
+        row["loss_step1"] = loss1 = float(m["loss"])
+        row["warmup_s"] = time.perf_counter() - t0
+        dtypes = {t.dtype for t in leaves_of(state.params.tensors())}
+        want = torch.bfloat16 if mb == 1 else torch.float32
+        check(dtypes == {want}, f"train {arch} mb={mb}: params {dtypes} "
+                                f"after a step, the reference gives {want}")
+        check(math.isfinite(loss1)
+              and abs(loss1 - math.log(cfg.vocab_size)) < 1.0,
+              f"train {arch} mb={mb}: step-1 loss {loss1} not within 1 of "
+              f"ln V = {math.log(cfg.vocab_size):.3f}")
+        if mb == 1:
+            mu1, loss_mb1 = leaves_of(state.opt.mu), loss1
+        else:
+            err = max(float((a - c).abs().max())
+                      for a, c in zip(leaves_of(state.opt.mu), mu1))
+            scale = max(float(t.abs().max()) for t in mu1)
+            row["mu_vs_mb1"] = err
+            row["loss_vs_mb1"] = abs(loss1 - loss_mb1) / abs(loss_mb1)
+            check(row["loss_vs_mb1"] <= 5e-3,
+                  f"train {arch}: microbatched loss {loss1} vs {loss_mb1}")
+            check(err < 5e-2, f"train {arch}: microbatched first moments "
+                              f"differ by {err} (largest {scale})")
+            row["mu_largest"] = scale
+            del mu1
+        step = TS.make_train_step(cfg, optim, microbatches=mb)
+        times, losses = [], []
+        for i in range(TRAIN_TIMED):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batches[1 + i])
+            losses.append(float(m["loss"]))
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        check(all(math.isfinite(x) for x in losses),
+              f"train {arch} mb={mb}: a loss is not finite: {losses}")
+        row["ms_per_step"] = statistics.median(times) * 1e3
+        row["ms_all"] = [t * 1e3 for t in times]
+        row["tokens_per_s"] = b * s / statistics.median(times)
+        row["losses"] = [loss1] + losses
+        if mb == 1:
+            prof = {}
+            sync(dev)
+            t0 = time.perf_counter()
+            with decode_profile(prof, steps=1):
+                state, m = step(state, batches[-1])
+                float(m["loss"])
+                sync(dev)
+            prof["seconds"] = time.perf_counter() - t0
+            check("error" not in prof and prof.get("device_ms_1_steps", 0) > 0,
+                  f"train profile {arch}: {prof.get('error', 'no device time')}")
+            row["profile"] = prof
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"mb{mb}"] = row
+        p = row.get("profile", {})
+        print(f"train {arch} B={b} S={s} microbatches {mb}: "
+              f"{row['ms_per_step']:.1f} ms/step (median of {TRAIN_TIMED}: "
+              f"{', '.join(f'{t:.1f}' for t in row['ms_all'])}; FLOP bound "
+              f"{bound_ms:.1f} ms), {row['tokens_per_s']:.0f} tok/s, peak "
+              f"{row['peak_gib']:.2f} GiB, step-1 loss {loss1:.4f} (ln V "
+              f"{math.log(cfg.vocab_size):.4f}), losses "
+              f"{', '.join(f'{x:.4f}' for x in row['losses'])}"
+              + (f"; 1 step profiled: busy {p.get('busy_share', 0):.1%}, "
+                 f"{p.get('launches_per_step', 0):.0f} kernels a step"
+                 if mb == 1 else
+                 f"; vs microbatches 1: loss {row['loss_vs_mb1']:.2e} "
+                 f"relative, first moments {row['mu_vs_mb1']:.3e} (largest "
+                 f"{row['mu_largest']:.3e})") + f" [{smi}]", flush=True)
+    del model
+    return out
+
+
+def held_tree(check, tag, got, want, tol_of, dev):
+    """Every leaf of ``got`` within ``tol_of(i, want_leaf)`` (an elementwise
+    allowance) of ``want``; planted faults of the largest-norm leaf
+    (zeroed, negated, shifted by one) outside it. Leaves are compared one
+    at a time on ``dev`` (the card: the CPU's passes over gigabyte leaves
+    took most of the phase). Returns the largest error as a share of its
+    allowance."""
+    import torch
+
+    def leaf(i):
+        g = got[i].detach().to(dev).float()
+        w = want[i].detach().to(dev).float()
+        return g, w, tol_of(i, w).clamp(min=1e-30)
+
+    worst, big, big_norm = 0.0, 0, -1.0
+    for i in range(len(want)):
+        g, w, allowed = leaf(i)
+        share = float(((g - w).abs() / allowed).max()) if g.numel() else 0.0
+        ok = bool(torch.isfinite(g).all()) and share <= 1.0
+        check(ok, f"{tag}: leaf {i} {tuple(w.shape)} off by {share:.3f} of "
+                  f"its allowance")
+        worst = max(worst, share)
+        n = float(w.norm())
+        if n > big_norm:
+            big, big_norm = i, n
+        del g, w, allowed
+    g, w, allowed = leaf(big)
+    for name, bad in (("zeroed", torch.zeros_like(g)), ("negated", -g),
+                      ("shifted", g.reshape(-1).roll(1).reshape(g.shape))):
+        check(not bool(((bad - w).abs() <= allowed).all()),
+              f"{tag}: a {name} leaf {big} would pass")
+    return worst
+
+
+def held_norms(check, tag, got, want, ref32, dev):
+    """bf16 leaves in L2 norm: ``|got - want|`` within ``max(2 |want -
+    ref32|, BF16_EPS |want|)`` (``want`` the CPU's bf16 leaf, ``ref32`` its
+    float32 one); planted faults of the largest-norm leaf (zeroed,
+    negated, shifted by one) outside it. Returns the largest error as a
+    share of its allowance."""
+    import torch
+
+    def leaf(i):
+        g = got[i].detach().to(dev).float()
+        w = want[i].detach().to(dev).float()
+        noise = float((w - ref32[i].detach().to(dev)).norm())
+        return g, w, max(2 * noise, BF16_EPS * float(w.norm()), 1e-30)
+
+    worst, big, big_norm = 0.0, 0, -1.0
+    for i in range(len(want)):
+        g, w, allowed = leaf(i)
+        share = float((g - w).norm()) / allowed
+        check(bool(torch.isfinite(g).all()) and share <= 1.0,
+              f"{tag}: leaf {i} {tuple(w.shape)} off by {share:.3f} of its "
+              f"allowance")
+        worst = max(worst, share)
+        if float(w.norm()) > big_norm:
+            big, big_norm = i, float(w.norm())
+    g, w, allowed = leaf(big)
+    for name, bad in (("zeroed", torch.zeros_like(g)), ("negated", -g),
+                      ("shifted", g.reshape(-1).roll(1).reshape(g.shape))):
+        check(float((bad - w).norm()) > allowed,
+              f"{tag}: a {name} leaf {big} would pass")
+    return worst
+
+
+def train_weights(arch, dev):
+    """(b)'s model: one pattern group of ``arch`` at full width, remat
+    ``"none"`` (recomputation would call the router again; remat changes
+    no value: ``tests/test_torch_train_step.py``), weights drawn from seed
+    0 on the card and copied to the CPU. Returns (config, the full model's
+    layers, the CPU model)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=full.pattern_len,
+                              remat="none")
+    return cfg, full.num_layers, TT.init_params(cfg, seed=0,
+                                                device=dev).copy_to("cpu")
+
+
+def train_held_bytes(nbytes, adamw):
+    """What (b)'s CPU results hold until the card's half has used them:
+    the bf16 model and gradients, the float32 gradients (and params)."""
+    return 2 * nbytes + (nbytes if adamw else 0)
+
+
+def train_cpu_half(check, arch, drawn):
+    """(b), the CPU's half, on phase 12's worker thread: one step of the
+    drawn model (``train_weights``) in bf16 (recording the MoE routes) and
+    in float32 (pinned to them), and for small models the float32 AdamW
+    update."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import steps as TS
+
+    cfg, of_layers, model = drawn
+    b, n = TRAIN_SHORT
+    f = cfg.frontend_len if cfg.frontend == "vision" else 0
+    batch = serve_inputs(cfg, b, f + n, 2, "cpu")
+    rng = np.random.default_rng(3)
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (b, f + n)),
+                                      dtype=torch.int32)
+    batch["loss_mask"] = torch.ones((b, f + n), dtype=torch.bfloat16)
+    nbytes = 4 * sum(t.numel() for t in model.parameters())
+    grad_fn = TS.make_grad_fn(cfg)
+    t0 = time.perf_counter()
+    with PinnedRouting(check, f"train {arch}") as route:
+        l16, _, g16 = grad_fn(model, batch)
+        route.replay(route.calls)
+        with torch.no_grad():
+            cpu32 = float32_twin(model)
+        l32, _, g32 = grad_fn(cpu32, batch)
+    out = {"cfg": cfg, "of_layers": of_layers, "batch": batch,
+           "model": model, "routes": route.calls, "flips": route.flips,
+           "losses": (l16.item(), l32.item()), "g16": leaves_of(g16),
+           "g32": leaves_of(g32), "nbytes": nbytes, "p32": None,
+           "adamw": 7 * nbytes <= ADAMW_CPU_BYTES}
+    out["grads_s"] = time.perf_counter() - t0
+    if out["adamw"]:
+        t1 = time.perf_counter()
+        optim = AdamW(lr=constant(TRAIN_LR))
+        p32, _, met = optim.update(
+            dict(enumerate(out["g32"])), optim.init(dict(enumerate(
+                leaves_of(cpu32.tensors())))))
+        out["p32"] = [p32[i] for i in range(len(out["g32"]))]
+        out["scale"] = min(1.0, 1.0 / max(float(met["grad_norm"]), 1e-9))
+        out["adamw_s"] = time.perf_counter() - t1
+    out["cpu_s"] = time.perf_counter() - t0
+    # what the result holds until the card's half has used it
+    out["held_bytes"] = train_held_bytes(nbytes, out["adamw"])
+    return out
+
+
+def train_card_half(check, smi, arch, dev, cpu):
+    """(b), the card's half: the same weights (the CPU's copy) and inputs
+    on the card, the MoE routes pinned to the CPU's bf16 run (near-ties
+    excepted), then every comparison, each on the card."""
+    import math
+
+    import torch
+
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import steps as TS
+
+    cfg = cpu["cfg"]
+    t0 = time.perf_counter()
+    model = cpu["model"].copy_to(dev)
+    on_card = {k: v.to(dev) for k, v in cpu["batch"].items()}
+    grad_fn = TS.make_grad_fn(cfg)
+    optim = AdamW(lr=constant(TRAIN_LR))
+    with PinnedRouting(check, f"train {arch} (card)") as route:
+        route.replay(cpu["routes"])
+        l16c, _, g16c = grad_fn(model, on_card)
+        route.replay(cpu["routes"])
+        with torch.no_grad():
+            twin = float32_twin(model)
+        del model
+        l32c, _, g32c = grad_fn(twin, on_card)
+    p32c = None
+    if cpu["adamw"]:
+        p32c, _, _ = optim.update(g32c, optim.init(twin.tensors()))
+        p32c = leaves_of(p32c)
+    del twin
+    g16c, g32c = leaves_of(g16c), leaves_of(g32c)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    g16, g32 = cpu["g16"], cpu["g32"]
+    losses = (l16c.item(), l32c.item()) + cpu["losses"]
+    check(all(map(math.isfinite, losses)),
+          f"train {arch}: a loss is not finite {losses}")
+    row = {"layers": cfg.num_layers, "of_layers": cpu["of_layers"],
+           "loss_card_bf16_f32_cpu_bf16_f32": losses,
+           "moe_route_flips": cpu["flips"] + route.flips}
+    row["loss_f32"] = abs(losses[1] - losses[3])
+    check(row["loss_f32"] <= TRAIN_F32_TOL * abs(losses[3]),
+          f"train {arch}: float32 loss card {losses[1]} vs CPU {losses[3]}")
+    loss_noise = abs(losses[2] - losses[3])
+    loss_tol = max(2 * loss_noise, LOSS_FLOOR * abs(losses[2]))
+    row["loss_bf16"], row["loss_bf16_tol"] = abs(losses[0] - losses[2]), \
+        loss_tol
+    check(row["loss_bf16"] <= loss_tol,
+          f"train {arch}: bf16 loss card {losses[0]} vs CPU {losses[2]} "
+          f"(tolerance {loss_tol})")
+
+    def f32_tol(i, w):
+        return TRAIN_F32_TOL * (w.abs() + w.abs().max())
+
+    row["grads_f32"] = held_tree(check, f"train {arch} float32 gradients",
+                                 g32c, g32, f32_tol, dev)
+    card_noise = max(
+        float((g16c[i].float() - g32c[i]).norm())
+        / max(float((g16[i].to(dev).float() - g32[i].to(dev)).norm()), 1e-30)
+        for i in range(len(g16)))
+    row["grads_bf16"] = held_norms(check, f"train {arch} bf16 gradients",
+                                   g16c, g16, g32, dev)
+    row["card_noise_vs_cpu"] = card_noise
+    if cpu["adamw"]:
+        scale = cpu["scale"]
+
+        def step_tol(i, w):
+            return 1e-4 + 1e-4 * w.abs() + torch.where(
+                (g32[i].to(dev) * scale).abs() < 1e-6, 2 * TRAIN_LR, 0.0)
+
+        row["params_f32"] = held_tree(
+            check, f"train {arch} float32 params after one AdamW step",
+            p32c, cpu["p32"], step_tol, dev)
+    del g16c, g32c, p32c
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update(adamw=cpu["adamw"], card_s=card_s, cpu_s=cpu["cpu_s"],
+               cpu_grads_s=cpu["grads_s"], adamw_cpu_s=cpu.get("adamw_s"))
+    nbytes = cpu["nbytes"]
+    print(f"train {arch} (b): {cfg.num_layers} of {cpu['of_layers']} layers; "
+          f"card = CPU in float32: loss {row['loss_f32']:.2e}, gradients "
+          f"{row['grads_f32']:.3f} of their allowance"
+          + (f", params after AdamW {row['params_f32']:.3f}" if cpu["adamw"]
+             else f", AdamW not run ({7 * nbytes / 2 ** 30:.0f} GiB of "
+                  f"float32 copies > {ADAMW_CPU_BYTES / 2 ** 30:.0f})")
+          + f"; bf16: loss {row['loss_bf16']:.2e} (tolerance "
+          f"{loss_tol:.2e}), gradients {row['grads_bf16']:.3f} of twice the "
+          f"CPU's bf16 noise (L2; the card's noise up to {card_noise:.2f}× "
+          f"the CPU's); {row['moe_route_flips']} MoE near-tie routes pinned; "
+          f"card {card_s:.1f} s, CPU {cpu['cpu_s']:.1f} s (its gradients "
+          f"{cpu['grads_s']:.1f}, AdamW {cpu.get('adamw_s', 0):.1f}) [{smi}]",
+          flush=True)
+    return row
+
+
+def train_cpu_worker(check, dev, results, budget, drawn, a_done):
+    """Phase 12's worker thread: every architecture's CPU half of (b), in
+    ``SERVE_PLAN`` order, each put on ``results``; it starts the next only
+    while the results the card has not used yet hold at most
+    ``TRAIN_HELD_BYTES`` (``budget``: a condition over a one-item list).
+    Models not in ``drawn`` (those drawn before (a)) are drawn once
+    ``a_done`` is set, so that no draw or copy shares the card with (a)."""
+    try:
+        for arch, _, _ in SERVE_PLAN:
+            with budget:
+                budget.wait_for(lambda: budget.held[0] <= TRAIN_HELD_BYTES)
+            if arch not in drawn:
+                a_done.wait()
+            out = train_cpu_half(check, arch, drawn.pop(arch, None)
+                                 or train_weights(arch, dev))
+            with budget:
+                budget.held[0] += out["held_bytes"]
+            results.put((arch, out))
+    except BaseException as err:  # noqa: BLE001 - re-raised by the caller
+        results.put((None, err))
+
+
+def train_example(check, smi):
+    """(c) ``repro_torch.train_100m``'s default run on the card (qwen3-100m,
+    200 steps, batch 8, seq 256, a checkpoint every 50 under
+    ``build/train_100m``), then the restart check: its step-100 bundle
+    alone in another directory, resumed to 200, against the uninterrupted
+    run within 2e-2 (the JAX package's test; not bit for bit: the
+    embedding's backward accumulates with atomics on the card)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import train_100m
+    from repro_torch.launch.train import TrainRun, run
+
+    sync("cuda")
+    t0 = time.perf_counter()
+    state, hist, prog = train_100m.main([])
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    check(hist[-1] < hist[0], f"train_100m: loss {hist[0]} -> {hist[-1]}")
+    ck = train_100m.DEFAULT_CKPT
+    again = ck.parent / "train_100m_restart"
+    shutil.rmtree(again, ignore_errors=True)
+    again.mkdir(parents=True)
+    t1 = time.perf_counter()
+    shutil.copytree(ck / "step_00000100", again / "step_00000100")
+    copy_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    resumed, hist2, _ = run(TrainRun(
+        cfg=train_100m.model_100m(), steps=200, global_batch=8, seq_len=256,
+        lr=3e-4, warmup=20, checkpoint_dir=str(again), checkpoint_every=50,
+        log_every=0), device="cuda")
+    resume_s = time.perf_counter() - t1
+    err = max(float((a.detach().float() - c.detach().float()).abs().max())
+              for a, c in zip(
+        leaves_of(resumed.params.tensors()), leaves_of(state.params.tensors())))
+    hist_err = float(np.abs(np.array(hist2) - np.array(hist[100:])).max())
+    check(len(hist2) == 100 and err <= 2e-2,
+          f"train_100m restart: {len(hist2)} steps resumed, params differ by "
+          f"{err} from the uninterrupted run (tolerance 2e-2)")
+    out = {"steps": len(hist), "first_loss": hist[0], "final_loss": hist[-1],
+           "tokens": prog.total, "seconds": wall,
+           "tokens_per_s": prog.total / wall, "resume_s": resume_s,
+           "restart_params_err": err, "restart_loss_err": hist_err,
+           "copy_s": copy_s, "nvidia_smi": smi}
+    print(f"train_100m: 200 steps in {wall:.1f} s ({out['tokens_per_s']:.0f} "
+          f"tok/s, {wall / 200 * 1e3:.1f} ms/step with logging and "
+          f"checkpoints), loss {hist[0]:.4f} -> {hist[-1]:.4f}; resumed at "
+          f"100 -> 200 in {resume_s:.1f} s: params within {err:.2e}, losses "
+          f"within {hist_err:.2e} of the uninterrupted run [{smi}]",
+          flush=True)
+    del state, resumed
+    t2 = time.perf_counter()
+    shutil.rmtree(again, ignore_errors=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["cleanup_s"] = time.perf_counter() - t2
+    return out
+
+
+def train_phase(check, log, smi, dev):
+    """Phase 12: (a) qwen3-0.6b trains whole at full width; (b) every
+    architecture one pattern group deep, card against CPU; (c) the
+    ``train_100m`` example with a restart. Launches no sync kernel (read
+    by ``main``)."""
+    import queue
+
+    import torch
+
+    secs = {}
+    t0 = time.perf_counter()
+    # the models the worker can take during (a), drawn before it
+    drawn, held = {}, 0
+    for arch, _, _ in SERVE_PLAN:
+        if held > TRAIN_HELD_BYTES:
+            break
+        drawn[arch] = train_weights(arch, dev)
+        nbytes = 4 * sum(t.numel() for t in drawn[arch][2].parameters())
+        held += train_held_bytes(nbytes, 7 * nbytes <= ADAMW_CPU_BYTES)
+    torch.cuda.empty_cache()
+    secs["draw"], n_drawn = time.perf_counter() - t0, len(drawn)
+    results, budget, a_done = queue.Queue(), threading.Condition(), \
+        threading.Event()
+    budget.held = [0]
+    worker = threading.Thread(
+        target=train_cpu_worker,
+        args=(check, dev, results, budget, drawn, a_done), daemon=True)
+    # the worker's CPU operations leave two cores to the thread that
+    # launches (a)'s ~64,000 kernels a step (with every core taken, a
+    # step's launches fell behind an H100 80GB HBM3: 82% busy, one step
+    # 1.3× the others)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(threads, (os.cpu_count() or 1) - 2)))
+    t0 = time.perf_counter()
+    worker.start()
+    out = {"whole": train_whole(check, smi, dev)}
+    gc.collect()
+    a_done.set()
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["card_cpu"] = {}
+    for _ in SERVE_PLAN:
+        arch, cpu = results.get()
+        if arch is None:
+            worker.join()
+            raise cpu
+        out["card_cpu"][arch] = train_card_half(check, smi, arch, dev, cpu)
+        with budget:
+            budget.held[0] -= cpu["held_bytes"]
+            budget.notify()
+        del cpu
+    worker.join()
+    worker_threads = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_100m"] = train_example(check, smi)
+    secs["c"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print(f"phase 12: (b)'s first {n_drawn} models drawn in "
+          f"{secs['draw']:.1f} s; (a) "
+          f"{secs['a']:.1f} s (with (b)'s CPU half beside it on a worker "
+          f"thread), (b) {secs['b']:.1f} s more, (c) "
+          f"{secs['c']:.1f} s; the worker's CPU threads {worker_threads} of "
+          f"{os.cpu_count()} cores", flush=True)
+    log["train"] = out
+
+
 # -- driver ----------------------------------------------------------------------
 
 SOURCES = {
@@ -3724,6 +4329,12 @@ def main() -> int:
     timed("serve", serve_phase, check, log, smi, dev)
     served = kernels.launch_counts()
     check(not any(served.values()), f"the serving path launched {served}")
+    # 12. the model side's trainer (plain PyTorch): no kernel of the eight
+    # is launched there either
+    kernels.reset_launches()
+    timed("train", train_phase, check, log, smi, dev)
+    trained = kernels.launch_counts()
+    check(not any(trained.values()), f"the training path launched {trained}")
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -17,12 +17,14 @@ uint32 in numpy, int32 bit-views in torch (same bits). Bool (GSet) stays
 bool. A tuple state (an LWWMap's ``(t, v)``, a product's components) and
 its buffers cross leaf by leaf, each leaf's slot axis swapped alike.
 
-The model side's trees cross too: a JAX parameter tree or cache (numpy
-leaves; bfloat16 arrives as numpy's ``bfloat16`` extension type) has one
-stacked dict per pattern position (``blocks``, leading axis the group)
-and the ``tail`` layers; the port has one module (or cache dict) a layer
-in stack order. ``params_to_torch`` and ``cache_to_torch`` unstack, and
-``cache_to_numpy`` stacks back (bf16 leaves as float32, exactly).
+The model side's trees cross too: a JAX parameter tree, optimizer tree
+or cache (numpy leaves; bfloat16 arrives as numpy's ``bfloat16`` extension
+type) has one stacked dict per pattern position (``blocks``, leading axis
+the group) and the ``tail`` layers; the port has one module (or dict) a
+layer in stack order. ``params_to_torch``, ``cache_to_torch`` and
+``train_state_to_torch`` unstack; ``params_to_numpy``, ``cache_to_numpy``
+and ``train_state_to_numpy`` stack back (bf16 leaves as float32,
+exactly).
 """
 
 from __future__ import annotations
@@ -120,19 +122,83 @@ def _unstack(cfg, tree):
     return layers + list(tree["tail"])
 
 
+def _stack(cfg, layers, leaf):
+    """One dict a layer in stack order -> the JAX ``blocks`` (stacked over
+    groups) and ``tail``, each leaf through ``leaf``."""
+    p, g = cfg.pattern_len, cfg.num_groups
+    blocks = [{k: np.stack([leaf(layers[gi * p + i][k]) for gi in range(g)])
+               for k in layers[i]} for i in range(p)] if g else []
+    return {"blocks": blocks,
+            "tail": [{k: leaf(v) for k, v in layer.items()}
+                     for layer in layers[g * p:]]}
+
+
+def _numpy_leaf(t):
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+HEAD = ("embed", "final_norm", "lm_head")
+
+
+def tree_to_torch(cfg, tree, device="cpu"):
+    """A JAX parameter-shaped tree (parameters, masters, moments; numpy
+    leaves) -> the port's tree (``Decoder.tensors()``'s layout) on
+    ``device``."""
+    out = {k: _leaf_to_torch(tree[k], device) for k in HEAD if k in tree}
+    out["layers"] = [{k: _leaf_to_torch(v, device) for k, v in layer.items()}
+                     for layer in _unstack(cfg, tree)]
+    return out
+
+
+def tree_to_numpy(cfg, tree):
+    """The port's parameter-shaped tree -> the JAX layout as numpy arrays;
+    bf16 leaves become float32 (exact)."""
+    out = {k: _numpy_leaf(tree[k]) for k in HEAD if k in tree}
+    out.update(_stack(cfg, tree["layers"], _numpy_leaf))
+    return out
+
+
 def params_to_torch(cfg, params, device="cpu"):
     """A JAX parameter tree (numpy leaves) -> the port's ``Decoder`` on
     ``device`` (tied or untied head as the tree has it)."""
     from repro_torch.models.transformer import Decoder
 
-    def t(a):
-        return _leaf_to_torch(a, device)
+    return Decoder(cfg, tree_to_torch(cfg, params, device))
 
-    tensors = {k: t(params[k]) for k in ("embed", "final_norm", "lm_head")
-               if k in params}
-    tensors["layers"] = [{k: t(v) for k, v in layer.items()}
-                         for layer in _unstack(cfg, params)]
-    return Decoder(cfg, tensors)
+
+def params_to_numpy(cfg, params):
+    """The port's ``Decoder`` -> the JAX parameter tree (numpy leaves, bf16
+    as float32)."""
+    return tree_to_numpy(cfg, params.tensors())
+
+
+def train_state_to_torch(cfg, state, device="cpu"):
+    """A JAX ``TrainState`` with numpy leaves (``params``; ``opt.step``,
+    ``.master``, ``.mu``, ``.nu``) -> the port's ``TrainState``."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.steps import TrainState
+
+    opt = state.opt
+    return TrainState(
+        params=params_to_torch(cfg, state.params, device),
+        opt=AdamWState(step=_leaf_to_torch(np.asarray(opt.step, np.int32),
+                                           device),
+                       master=tree_to_torch(cfg, opt.master, device),
+                       mu=tree_to_torch(cfg, opt.mu, device),
+                       nu=tree_to_torch(cfg, opt.nu, device)))
+
+
+def train_state_to_numpy(cfg, state):
+    """The port's ``TrainState`` -> ``{"params": ..., "opt": {"step",
+    "master", "mu", "nu"}}`` in the JAX layout (numpy leaves, bf16 as
+    float32)."""
+    opt = state.opt
+    return {"params": params_to_numpy(cfg, state.params),
+            "opt": {"step": opt.step.cpu().numpy(),
+                    "master": tree_to_numpy(cfg, opt.master),
+                    "mu": tree_to_numpy(cfg, opt.mu),
+                    "nu": tree_to_numpy(cfg, opt.nu)}}
 
 
 def cache_to_torch(cfg, cache, device="cpu"):
@@ -144,14 +210,4 @@ def cache_to_torch(cfg, cache, device="cpu"):
 def cache_to_numpy(cfg, cache):
     """The port's cache -> the JAX layout (``blocks`` stacked over groups,
     ``tail``) as numpy arrays; bf16 leaves become float32 (exact)."""
-
-    def n(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    p, g = cfg.pattern_len, cfg.num_groups
-    blocks = [{k: np.stack([n(cache[gi * p + i][k]) for gi in range(g)])
-               for k in cache[i]} for i in range(p)] if g else []
-    return {"blocks": blocks,
-            "tail": [{k: n(v) for k, v in layer.items()}
-                     for layer in cache[g * p:]]}
+    return _stack(cfg, cache, _numpy_leaf)

@@ -1,6 +1,10 @@
-"""The data plane's replicated shard ledger and progress counter
-(PyTorch)."""
+"""The data plane, PyTorch port of ``repro.data``: the deterministic
+synthetic pipeline (``DataConfig``, ``synth_block``, ``batch_for_step``)
+and the replicated shard ledger and progress counter."""
 
-from repro_torch.data.pipeline import ProgressCounter, ShardLedger
+from repro_torch.data.pipeline import (DataConfig, ProgressCounter,
+                                       ShardLedger, batch_for_step,
+                                       synth_block)
 
-__all__ = ["ProgressCounter", "ShardLedger"]
+__all__ = ["DataConfig", "ProgressCounter", "ShardLedger", "batch_for_step",
+           "synth_block"]

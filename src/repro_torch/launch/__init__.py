@@ -1,2 +1,3 @@
 """Device meshes over the batch axes of sweeps and stores (``mesh``), and
-the model side's batched server (``serve``), in PyTorch."""
+the model side's batched server (``serve``) and training driver
+(``train``), in PyTorch."""

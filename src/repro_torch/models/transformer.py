@@ -22,17 +22,29 @@ or ring cache / recurrent state). A cache is a list with one dict per
 layer; decode writes each attention layer's k/v/position into its cache
 tensors in place (slot ``pos % s`` of a ``local`` ring, ``min(pos, s-1)``
 of a ``global`` cache) and returns the same list with the recurrent
-states replaced. The weights are frozen (serving); gradients come with
-the training slice.
+states replaced.
+
+The weights are created frozen (serving runs without autograd);
+``train.steps.init_train_state`` makes them trainable. In ``train`` mode
+with ``cfg.remat`` other than ``"none"``, each pattern group of the stack
+is checkpointed (``torch.utils.checkpoint``, non-reentrant) as the JAX
+package checkpoints its scanned group body; the tail layers are not.
+``"nothing"`` keeps only a group's input for the backward pass;
+``"dots"`` also keeps the outputs of the weight products (``mm`` and
+``addmm``: products without batch dimensions, as
+``checkpoint_dots_with_no_batch_dims`` keeps them) and recomputes the rest.
+Remat changes no value, only what backward recomputes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as CK
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -448,14 +460,49 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Decoder:
 # Stack application
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CK.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CK.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: ModelConfig):
+    """The ``context_fn`` of a checkpointed group for ``cfg.remat``."""
+    if cfg.remat == "dots":
+        return functools.partial(CK.create_selective_checkpoint_contexts,
+                                 _keep_dots)
+    return CK.noop_context_fn
+
+
+def _train_group(cfg: ModelConfig, layers, x, positions):
+    """One pattern group in train mode (no cache). Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        x, _, a = layer(cfg, x, positions, "train", None, None)
+        aux = aux + a
+    return x, aux
+
+
 def apply_stack(cfg: ModelConfig, params: Decoder, x, positions, *,
                 mode: str, cache=None, pos=None):
     """Apply all layers. Returns (x, new_cache, aux_total)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None if cache is None else []
-    for i, layer in enumerate(params.layers):
+    start = 0
+    if mode == "train" and cfg.remat != "none" and torch.is_grad_enabled():
+        p, ctx = cfg.pattern_len, _remat_context(cfg)
+        for g in range(cfg.num_groups):
+            x, a = CK.checkpoint(_train_group, cfg,
+                                 params.layers[g * p:(g + 1) * p], x,
+                                 positions, use_reentrant=False,
+                                 context_fn=ctx)
+            aux_total = aux_total + a
+        start = cfg.num_groups * p
+    for i in range(start, cfg.num_layers):
         c_i = cache[i] if cache is not None else None
-        x, nc, a = layer(cfg, x, positions, mode, c_i, pos)
+        x, nc, a = params.layers[i](cfg, x, positions, mode, c_i, pos)
         aux_total = aux_total + a
         if cache is not None:
             new_cache.append(nc)

@@ -878,3 +878,119 @@ def test_model_on_the_card_matches_the_cpu(sm90, arch, rng):
                 elif got_t[b, i] != want_t[b, i]:
                     break
     assert kernels.launch_counts() == before
+
+
+TRAIN_TOL = 1e-4       # float32 on both sides: reduction order only
+
+
+def _f32(cfg, model):
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import tree_map
+
+    return TT.Decoder(cfg, tree_map(lambda t: t.detach().float(),
+                                    model.tensors()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-coder-33b", "gemma2-27b",
+                                  "qwen3-0.6b", "qwen2.5-14b",
+                                  "mixtral-8x22b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b",
+                                  "musicgen-large", "internvl2-26b"])
+def test_train_step_on_the_card_matches_the_cpu(sm90, arch, rng):
+    """One training step of every smoke config (remat as configured) on
+    the card against the CPU, in float32 with the same weights (copied)
+    and inputs: the loss and every gradient leaf at atol = rtol = 1e-4,
+    the params after one AdamW step likewise except where the clipped
+    gradient is below 1e-6 (Adam's first step g/(|g| + ε) turns on ε
+    there; held within 2·lr). No sync kernel is launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps as TS
+
+    cfg = get_smoke_config(arch)
+    _, batch = _model_inputs(cfg, 2, 32, rng)       # 32 positions in all
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   (2, 32)),
+                                      dtype=torch.int32)
+    batch["loss_mask"] = torch.ones((2, 32), dtype=torch.bfloat16)
+    model = _f32(cfg, TT.init_params(cfg, seed=0, device="cpu"))
+    before = kernels.launch_counts()
+    lr = 1e-3
+    runs = []
+    for dev in ("cpu", sm90):
+        m = model.copy_to(dev)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        loss, _, grads = TS.make_grad_fn(cfg)(m, bt)
+        opt = AdamW(lr=constant(lr))
+        state, met = TS.make_train_step(cfg, opt)(
+            TS.init_train_state(cfg, opt, m), bt)
+        runs.append((loss.item(), [g.cpu() for g in tree_leaves(grads)],
+                     [p.detach().cpu() for p in
+                      tree_leaves(state.params.tensors())],
+                     float(met["grad_norm"])))
+    (l0, g0, p0, n0), (l1, g1, p1, _) = runs
+    torch.testing.assert_close(l1, l0, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    for i, (a, b) in enumerate(zip(g1, g0)):
+        torch.testing.assert_close(a, b, atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                                   msg=f"{arch} grad leaf {i}")
+    scale = min(1.0, 1.0 / max(n0, 1e-9))
+    for i, (a, b, g) in enumerate(zip(p1, p0, g0)):
+        allowed = TRAIN_TOL + TRAIN_TOL * b.abs() + torch.where(
+            (g * scale).abs() < 1e-6, 2 * lr, 0.0)
+        assert bool(((a - b).abs() <= allowed).all()), (arch, i)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_microbatched_step_on_the_card_returns_float32_params(sm90, rng):
+    """The reference's dtype rule on the card: bf16 weights stay bf16 after
+    an unbatched step and turn float32 (the accumulator's dtype) after a
+    microbatched one, with the loss of both within 5e-3 relative."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps as TS
+
+    cfg = get_smoke_config("qwen2.5-14b")
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (4, 32)),
+                                       dtype=torch.int32, device=sm90),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (4, 32)),
+                                       dtype=torch.int32, device=sm90),
+             "loss_mask": torch.ones((4, 32), dtype=torch.bfloat16,
+                                     device=sm90)}
+    opt = AdamW(lr=constant(0.0), weight_decay=0.0)
+    out = {}
+    for mb in (1, 2):
+        model = TT.init_params(cfg, seed=0, device=sm90)
+        state, m = TS.make_train_step(cfg, opt, microbatches=mb)(
+            TS.init_train_state(cfg, opt, model), batch)
+        out[mb] = ({t.dtype for t in tree_leaves(state.params.tensors())},
+                   float(m["loss"]))
+    assert out[1][0] == {torch.bfloat16} and out[2][0] == {torch.float32}
+    assert abs(out[1][1] - out[2][1]) <= 5e-3 * abs(out[1][1])
+
+
+@pytest.mark.cuda
+def test_train_100m_tiny_on_the_card(sm90, tmp_path):
+    """``python -m repro_torch.train_100m --tiny`` (the card by default)
+    exits 0: the loss fell; it prints the example's last line."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.train_100m", "--tiny", "--ckpt",
+         str(tmp_path / "ck")], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=str(repo / "src")),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].endswith(
+        "tokens consumed (CRDT progress counter): 7,680")

@@ -6,9 +6,11 @@ without a card, ``simulate`` with no ``device=`` raises instead of falling
 back to the CPU, for the δ-family, a faulted resync run and an LWWMap run
 alike, and so do ``simulate_sweep``, ``simulate_store``, the gossip runtime
 (``GossipNode``, ``CheckpointRegistry``, ``ShardLedger``,
-``ProgressCounter``), ``elastic_churn`` and the model side's server
+``ProgressCounter``), ``elastic_churn``, the model side's server
 (``generate``, ``init_params``, ``init_cache``, ``python -m
-repro_torch.launch.serve``)."""
+repro_torch.launch.serve``) and its training (``launch.train.run``,
+``train_100m.main``, ``data.batch_for_step``, ``python -m
+repro_torch.train_100m``)."""
 
 import ast
 import os
@@ -167,6 +169,49 @@ def test_serving_defaults_to_the_card():
     assert "CPU (1, 2)" in out.stdout, out.stdout
     cli = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve"], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    assert cli.returncode != 0 and "no CUDA device" in cli.stderr
+    assert cli.stdout == ""
+
+
+def test_training_defaults_to_the_card():
+    """The training entry points (``launch.train.run``,
+    ``train_100m.main``, ``data.batch_for_step``, ``python -m
+    repro_torch.train_100m``) raise without a card unless given the CPU."""
+    code = (
+        "import os, tempfile, torch\n"
+        "from repro_torch import train_100m\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.data import DataConfig, batch_for_step\n"
+        "from repro_torch.launch import train\n"
+        "assert not torch.cuda.is_available()\n"
+        "cfg = get_smoke_config('qwen3-0.6b')\n"
+        "tr = train.TrainRun(cfg, steps=2, global_batch=2, seq_len=8,\n"
+        "                    log_every=0)\n"
+        "ck = os.path.join(tempfile.mkdtemp(), 'ck')\n"
+        "dc = DataConfig(vocab_size=64, seq_len=8, global_batch=2)\n"
+        "for run, cpu in (\n"
+        "        (lambda **k: train.run(tr, **k), {'device': 'cpu'}),\n"
+        "        (lambda *a: train_100m.main(['--tiny', '--steps', '10',\n"
+        "                                     '--ckpt', ck, *a]),\n"
+        "         ('--device', 'cpu')),\n"
+        "        (lambda **k: batch_for_step(dc, 0, 0, **k),\n"
+        "         {'device': 'cpu'})):\n"
+        "    try:\n"
+        "        run()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', e)\n"
+        "    out = run(*cpu) if isinstance(cpu, tuple) else run(**cpu)\n"
+        "print('CPU', len(out), tuple(out['tokens'].shape),\n"
+        "      out['tokens'].device)\n")
+    out = run_python(code, CUDA_VISIBLE_DEVICES="")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("RAISED no CUDA device") == 3, out.stdout
+    assert "CPU 3 (2, 8) cpu" in out.stdout, out.stdout
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.train_100m", "--tiny"], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
                  CUDA_VISIBLE_DEVICES=""),
         capture_output=True, text=True, timeout=120)
