@@ -165,7 +165,30 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    shifted leaf; (c) ``python -m repro_torch.train_100m``'s default run
    (qwen3-100m, 200 steps, batch 8, seq 256, checkpoints every 50; the
    loss must fall), its step-100 bundle resumed to 200 against the
-   uninterrupted run within 2e-2.
+   uninterrupted run within 2e-2;
+13. the autotuner, the model side's meshes and the dry-run, with the
+   autotune cache pointed at an empty file of the smoke's own from the
+   start (every earlier phase runs the default plans): (a) every plan of
+   ``round_step.plans`` at the scale phase's GMap 4,194,304 bprr round
+   (mesh15d4, K = P + 1, per-origin) and at the Retwis store's [30,000, 50,
+   64] bprr round against the plain version exactly; ``ops.
+   sync_round_block`` tuning into a fresh file (each candidate's ms by
+   CUDA events, the winner beside the default plan and the byte bound),
+   then resolving from it (source "cache"); a mega GMap 4M bprr run (12 +
+   8 rounds) under the tuned plan equal to the default plan's run, its
+   launches counted as the "tuned" path; (b) a one-rank NCCL group and a
+   (1, 1) mesh on the card: qwen3-0.6b whole in float32, weights from seed
+   0 placed by ``param_specs`` / ``to_named``, one train step (batch 2 ×
+   512) with hints and ``grad_specs`` equal to the plain step (loss, every
+   gradient leaf, the params after AdamW at phase 12's float32
+   allowances, each rejecting planted faults), a prefill and four decode
+   steps through ``make_prefill`` / ``make_decode(hints=)`` equal to the
+   plain ones; (c) on the CPU, in subprocesses started before phase 11
+   (fake process group, no card, one thread each): the dry-run of qwen3-0.6b
+   train_4k on the 16 × 16 mesh and of mixtral-8x22b decode_32k on 4 × 4
+   (exit 0, ``OK`` lines), and qwen3-0.6b at batch 4 × 4,096 on (1, 1),
+   its predicted peak memory and FLOPs beside phase 12 (a)'s measured
+   peak and FLOP count.
 
 Phases 4–5 are the sync engines' main path, phase 6 its batched form,
 phase 7 the lex-pair one (the elementwise kernels' users), phase 8 the
@@ -4112,6 +4135,443 @@ def train_phase(check, log, smi, dev):
     log["train"] = out
 
 
+# -- phase 13: the autotuner, the model side's meshes, the dry-run ------------
+
+# The smoke's own autotune cache (empty: every phase keeps the default
+# plans), never a user's under ~/.cache; phase 13 (a) tunes into files of
+# its own beside it.
+TUNE_DIR = REPO / "build" / "chip_smoke_autotune"
+# (a) round_step's plans at the scale phase's GMap 4M bprr round (mesh15d4,
+# K = P + 1, per-origin) and at the Retwis store's shape (mesh50 d4)
+TUNE_SHAPES = (("GMap 4,194,304 bprr mesh15d4", 1, 15, SCALE_KEYS),
+               ("Retwis [30,000, 50, 64] bprr", 30_000, 50, 64))
+# (b) qwen3-0.6b whole on a one-rank NCCL group's (1, 1) mesh, float32
+SHARDED_TRAIN = ("qwen3-0.6b", 2, 512)
+SHARDED_PROMPT, SHARDED_STEPS = 32, 4
+# (c) the dry-run cells, each a subprocess on the CPU (fake process group,
+# no card, one thread), started before phase 11 — beside the host-bound
+# server and the trainer, which use a few of the card machine's 8 cores —
+# and awaited in phase 13: traced alone in phase 13 they would take its
+# ~110 s, beyond its 90 s
+DRYRUN_LIMIT_S = 600
+DRYRUN_1X1 = """
+import json
+from repro_torch.configs.registry import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_process_group, make_mesh
+with fake_process_group(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    r = dryrun.run_cell("qwen3-0.6b", ShapeSpec("train_4k", 4096, 4, "train"),
+                        mesh, "mesh1,1", save=False)
+print(json.dumps({k: r.get(k) for k in ("status", "error", "memory",
+                                         "op_cost", "roofline", "trace_s")}))
+"""
+DRYRUN_CELLS = (
+    ("qwen3-0.6b train_4k pod16x16", ["-m", "repro_torch.launch.dryrun",
+                                      "--arch", "qwen3-0.6b", "--shape",
+                                      "train_4k", "--mesh", "single",
+                                      "--no-save"]),
+    ("mixtral-8x22b decode_32k mesh4,4", ["-m", "repro_torch.launch.dryrun",
+                                          "--arch", "mixtral-8x22b",
+                                          "--shape", "decode_32k",
+                                          "--mesh-shape", "4,4",
+                                          "--no-save"]),
+    ("qwen3-0.6b 4x4096 mesh1,1", ["-c", DRYRUN_1X1]),
+)
+
+
+def own_tune_cache():
+    """Point the autotuner at an empty cache file of the smoke's own, in
+    cache mode (``REPRO_AUTOTUNE`` cleared)."""
+    TUNE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TUNE_DIR / "smoke.json"
+    path.write_text("{}")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(path)
+    os.environ["REPRO_AUTOTUNE"] = ""
+    return path
+
+
+def round_operands(g, b, n, u, dev):
+    """One bprr round's operands of ``b`` configs on partial_mesh(n, 4)."""
+    import torch
+
+    from repro_torch.sync import topology
+
+    topo = topology.partial_mesh(n, 4).on(dev)
+    p = topo.max_degree
+    k = p + 1
+    return (rand_state(g, torch.int32, (b, n, u), dev),
+            rand_state(g, torch.int32, (b, n, u), dev),
+            rand_state(g, torch.int32, (k, b, n, u), dev),
+            topo.mask.to(torch.int32).expand(b, n, p).contiguous(),
+            torch.ones((b, n), dtype=torch.int32, device=dev),
+            topo.nbrs, topo.rev), p, k
+
+
+def same_outputs(got, want) -> bool:
+    import torch
+
+    return all((a is None and c is None) or (
+        a is not None and c is not None and torch.equal(a, c))
+        for a, c in zip(got, want))
+
+
+def tune_phase(check, log, smi, dev, smoke_cache):
+    """(a) every plan of ``round_step.plans`` at both shapes launched and
+    held to the plain version exactly; ``ops.sync_round_block`` tuning into
+    a fresh file (each candidate's ms by CUDA events), then resolving from
+    it ("cache"); a mega GMap 4M bprr run under the tuned plan against the
+    default plan's, bit for bit. The memo is cleared and the smoke's empty
+    cache restored after; the same for the Retwis paper store's mega run
+    at the store shape's winner. Returns the mega runs' launches.""" 
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import GMap
+    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import round_step as ks
+    from repro_torch.sync import simulate, simulate_store, topology
+    from repro_torch.sync import workloads as W
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    kw = ("max", True, True, False)         # kind, per_origin, extracts, inbox
+    out, winners = [], {}
+    for i, (tag, b, n, u) in enumerate(TUNE_SHAPES):
+        args, p, k = round_operands(g, b, n, u, dev)
+        want = ks.plain(*args, *kw)
+        cands = ks.plans(n, p, k, True, 4, u, True)
+        for pl in cands:
+            check(same_outputs(ks._launch(*args, *kw, pl=pl), want),
+                  f"tune {tag}: plan {pl} differs from the plain version")
+        del want
+        path = TUNE_DIR / f"tune{i}.json"
+        path.unlink(missing_ok=True)
+        os.environ.update(REPRO_AUTOTUNE_CACHE=str(path), REPRO_AUTOTUNE="1")
+        common._TUNE_MEM.clear()
+
+        def bench(pl, args=args):
+            for _ in range(ks.BENCH_LAUNCHES):
+                ks._kernel(*args, *kw, pl)
+
+        blk = dict(p=p, k=k, per_origin=True, kind="max", elem_size=4,
+                   aligned=True, device=dev)
+        win, src = ops.sync_round_block(b, n, u, tune_bench=bench, **blk)
+        check(src == "tuned", f"tune {tag}: resolved {src}, not tuned")
+        (entry,) = json.loads(path.read_text()).values()
+        ms = {tuple(json.loads(c)): t / ks.BENCH_LAUNCHES * 1e3
+              for c, t in entry["timings_s"].items()}
+        check(len(ms) == len(cands), f"tune {tag}: {len(ms)} of "
+                                     f"{len(cands)} candidates timed")
+        os.environ["REPRO_AUTOTUNE"] = ""
+        common._TUNE_MEM.clear()
+        again = ops.sync_round_block(b, n, u, **blk)
+        check(again == (win, "cache"), f"tune {tag}: the second resolution "
+                                       f"gave {again}, not ({win}, cache)")
+        default = cands[0]
+        check(ms[tuple(win)] <= ms[tuple(default)],
+              f"tune {tag}: the winner is slower than the default")
+        plane = b * n * u * 4
+        b_ms, b_by = bound((2 * k + 3) * plane,
+                           (2 + 3 * k + 6 * p + 1) * b * n * u)
+        row = {"shape": tag, "configs": b, "nodes": n, "columns": u,
+               "candidates": [dict(pl._asdict(), ms=ms[tuple(pl)])
+                              for pl in cands],
+               "winner": dict(win._asdict(), ms=ms[tuple(win)]),
+               "default_ms": ms[tuple(default)], "bound_ms": b_ms,
+               "bound_by": b_by, "nvidia_smi": smi}
+        out.append(row)
+        winners[tag] = (win, path)
+        print(f"tune {tag}: " + "; ".join(
+            f"tile {pl.tile} vec {pl.vec_bytes} stages {pl.stages}: "
+            f"{ms[tuple(pl)]:.3f} ms" for pl in cands), flush=True)
+        print(f"tune {tag}: winner tile {win.tile} vec {win.vec_bytes} "
+              f"stages {win.stages} {ms[tuple(win)]:.3f} ms, default "
+              f"{ms[tuple(default)]:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+              f"resolved again from the cache [{smi}]", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+    # the mega GMap 4M bprr run, and the Retwis paper store's bprr mega
+    # run, under the tuned plan and under the default
+    nodes, objects, slots, active, quiet, ops_n = RETWIS_PAPER
+    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, active, ops_n)
+    gmap = W.gmap_block_op(15, SCALE_KEYS, 10)
+    workloads = (
+        (TUNE_SHAPES[0][0], 20, 1, lambda: simulate(
+            "bprr", GMap(SCALE_KEYS).lattice, topology.partial_mesh(15, 4),
+            gmap, 12, 8, engine="mega")),
+        (TUNE_SHAPES[1][0], active + quiet, objects, lambda: simulate_store(
+            "bprr", lat, topology.partial_mesh(nodes, 4), spec, active,
+            quiet, engine="mega")))
+    kernels.reset_launches()
+    want = {k: 0 for k in SOURCES}
+    for (tag, _, n, u), (_, rounds, configs, run) in zip(TUNE_SHAPES,
+                                                           workloads):
+        win, path = winners[tag]
+        default = ks.plans(n, 4, 5, True, 4, u, True)[0]
+        kept, ms = {}, {"tuned": [], "default": []}
+        # a warm-up, then default, tuned, tuned, default: each plan timed
+        # twice, in turns; one result of each kept for the equality check
+        order = ("default", "default", "tuned", "tuned", "default")
+        for i, name in enumerate(order):
+            cache, want_plan = (path, win) if name == "tuned" \
+                else (smoke_cache, default)
+            os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+            common._TUNE_MEM.clear()
+            gc.collect()
+            sync(dev)
+            t0 = time.perf_counter()
+            r = run()
+            sync(dev)
+            if i:                          # the first is the warm-up
+                ms[name].append((time.perf_counter() - t0) * 1e3 / rounds)
+            kept.setdefault(name, r)
+            del r
+            check(ks.last_launch[0] == want_plan,
+                  f"tune {tag}: the {name} mega run launched "
+                  f"{ks.last_launch[0]}")
+            for k, v in expected_launches("mega", "bprr", rounds,
+                                          configs).items():
+                want[k] += v
+        check(same_run(kept["tuned"], kept["default"]),
+              f"tune {tag}: the tuned plan's mega run differs from the "
+              f"default plan's")
+        row = next(r for r in out if r["shape"] == tag)
+        row["mega_ms_per_round"] = dict(ms, rounds=rounds)
+        print(f"tune {tag}: mega run ({rounds} rounds) under tile "
+              f"{win.tile} vec {win.vec_bytes} stages {win.stages} equal "
+              f"to the default plan's; ms/round tuned "
+              f"{', '.join(f'{t:.3f}' for t in ms['tuned'])}, default "
+              f"{', '.join(f'{t:.3f}' for t in ms['default'])} (after a "
+              f"warm-up run, in turns) [{smi}]", flush=True)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = kernels.launch_counts()
+    check(launched == want, f"tune: mega runs launched {launched}, expected "
+                            f"{want}")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(smoke_cache)
+    common._TUNE_MEM.clear()
+    log["autotune"] = out
+    return launched
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(check, log, smi, dev):
+    """(b) a one-rank NCCL process group and a (1, 1) mesh on the card:
+    qwen3-0.6b whole in float32, weights from seed 0 placed by
+    ``param_specs`` / ``to_named``, a train step with hints and
+    ``grad_specs`` against the plain ``make_train_step`` (loss, every
+    gradient leaf, the params after AdamW, at phase 12's float32
+    allowances, each rejecting planted faults), then a prefill and four
+    decode steps through ``make_prefill`` / ``make_decode(hints=)`` against
+    the plain ones. The group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train import sharding as SH
+    from repro_torch.train import steps as TS
+
+    arch, b, s = SHARDED_TRAIN
+    on_card = torch.device(dev).type == "cuda"
+    dist.init_process_group(
+        "nccl" if on_card else "gloo",
+        init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device())
+        if on_card else None)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"),
+                         device_type=torch.device(dev).type)
+        cfg = get_config(arch)
+        model = float32_twin(TT.init_params(cfg, seed=0, device=dev))
+        hints = TT.ShardingHints(data_axes=SH.data_axes_of(mesh),
+                                 model_axis="model")
+        p_sp = SH.param_specs(cfg, mesh, "train")
+        smodel = TT.Decoder(cfg, SH.to_named(model.tensors(), p_sp, mesh))
+        batch = batch_for_step(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=s, global_batch=b, seed=0),
+                               0, 0, device=dev)
+        sbatch = SH.to_named(batch, SH.batch_specs(cfg, mesh, batch), mesh)
+        out = {"arch": arch, "layers": cfg.num_layers, "batch": b, "seq": s,
+               "nvidia_smi": smi}
+        loss, _, grads = TS.make_grad_fn(cfg)(model, batch)
+        sloss, _, sgrads = TS.make_grad_fn(cfg, hints=hints,
+                                           grad_specs=p_sp)(smodel, sbatch)
+        loss, sloss = float(loss), float(sloss.full_tensor())
+        out["loss"], out["sharded_loss"] = loss, sloss
+        check(abs(sloss - loss) <= TRAIN_F32_TOL * abs(loss),
+              f"sharded {arch}: loss {sloss} vs {loss}")
+        grads = leaves_of(grads)
+        out["grads"] = held_tree(
+            check, f"sharded {arch} gradients",
+            leaves_of(SH.full_tree(sgrads)), grads,
+            lambda i, w: TRAIN_F32_TOL * (w.abs() + w.abs().max()), dev)
+        del sgrads
+        scale = min(1.0, 1.0 / max(float(torch.sqrt(sum(
+            (g.float() ** 2).sum() for g in grads))), 1e-9))
+        optim = AdamW(lr=constant(TRAIN_LR))
+        steps = {"plain": (TS.make_train_step(cfg, optim), model, batch),
+                 "sharded": (TS.make_train_step(cfg, optim, hints=hints,
+                                                grad_specs=p_sp),
+                             smodel, sbatch)}
+        new = {}
+        for name, (step, m, bt) in steps.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            new[name], _ = step(TS.init_train_state(cfg, optim, m), bt)
+            sync(dev)
+            out[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def step_tol(i, w):
+            return 1e-4 + 1e-4 * w.abs() + torch.where(
+                (grads[i] * scale).abs() < 1e-6, 2 * TRAIN_LR, 0.0)
+
+        out["params"] = held_tree(
+            check, f"sharded {arch} params after one AdamW step",
+            leaves_of(SH.full_tree(new["sharded"].params.tensors())),
+            leaves_of(new["plain"].params.tensors()), step_tol, dev)
+        del new, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving: a prefill of 36 positions, then 4 decode steps over the
+        # last 4, each attending the cache up to its own position
+        total = SHARDED_PROMPT + SHARDED_STEPS
+        tokens = serve_inputs(cfg, b, total, 5, dev)["tokens"]
+        prompt = {"tokens": tokens}
+        sprompt = SH.to_named(prompt, SH.batch_specs(cfg, mesh, prompt),
+                              mesh)
+        s_sp = SH.param_specs(cfg, mesh, "serve")
+        smodel = TT.Decoder(cfg, SH.to_named(model.tensors(), s_sp, mesh))
+        logits, cache = TS.make_prefill(cfg)(model, prompt)
+        slogits, scache = TS.make_prefill(cfg, hints=hints)(smodel, sprompt)
+        got, want = [slogits.full_tensor()], [logits]
+        decode = TS.make_decode(cfg)
+        sdecode = TS.make_decode(cfg, hints=hints)
+        for i in range(SHARDED_STEPS):
+            pos = SHARDED_PROMPT + i
+            tok = {"tokens": tokens[:, pos:pos + 1].contiguous()}
+            stok = SH.to_named(tok, SH.batch_specs(cfg, mesh, tok), mesh)
+            logits, cache = decode(model, cache, tok, pos)
+            slogits, scache = sdecode(smodel, scache, stok, pos)
+            got.append(slogits.full_tensor())
+            want.append(logits)
+        out["serve_logits"] = held_tree(
+            check, f"sharded {arch} prefill and decode logits", got, want,
+            lambda i, w: TRAIN_F32_TOL * (w.abs() + w.abs().max()), dev)
+        out["cache_placements"] = str(scache[0]["k"].placements)
+        del model, smodel, cache, scache
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded {arch} ({cfg.num_layers} layers, float32, mesh (1, 1), "
+          f"B {b} x S {s}): loss {out['sharded_loss']:.6f} vs "
+          f"{out['loss']:.6f}, gradients {out['grads']:.3f} and params after "
+          f"AdamW {out['params']:.3f} of their allowances; step "
+          f"{out['sharded_step_ms']:.1f} ms sharded vs "
+          f"{out['plain_step_ms']:.1f} plain; prefill + {SHARDED_STEPS} decode steps' logits "
+          f"{out['serve_logits']:.3f} of theirs, cache "
+          f"{out['cache_placements']} [{smi}]", flush=True)
+    log["sharded"] = out
+
+
+def start_dryruns():
+    """The dry-run cells as subprocesses on the CPU (no card visible, one
+    thread each, at the lowest priority: phases 11 and 12 run beside them
+    and time their host's work)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {}
+    for tag, args in DRYRUN_CELLS:
+        proc = subprocess.Popen([sys.executable, *args], cwd=REPO, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+        procs[tag] = (time.perf_counter(), proc)
+    return procs
+
+
+def finish_dryruns(check, log, procs):
+    """(c) each cell exits 0 with an ``OK`` line within its time limit; the
+    1×1 cell's predicted peak memory and FLOPs beside phase 12 (a)'s
+    measured peak and FLOP count."""
+    out = {}
+    for tag, (t0, proc) in procs.items():
+        left = max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - t0))
+        try:
+            stdout, stderr = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            check(False, f"dry-run {tag}: not done in {DRYRUN_LIMIT_S} s")
+            continue
+        secs = time.perf_counter() - t0
+        lines = stdout.strip().splitlines() or [""]
+        if tag.endswith("mesh1,1"):
+            ok = proc.returncode == 0 and lines[-1].startswith("{") \
+                and json.loads(lines[-1]).get("status") == "ok"
+        else:
+            ok = proc.returncode == 0 and " OK " in stdout \
+                and "0 failed" in stdout
+        check(ok, f"dry-run {tag}: exit {proc.returncode}: "
+                  f"{(stdout + stderr)[-2000:]}")
+        out[tag] = {"seconds": secs, "stdout": stdout[-4000:]}
+        for line in lines:
+            if line.startswith("[") or line.startswith("dry-run"):
+                print(f"dry-run {tag}: {line} ({secs:.1f} s)", flush=True)
+        if ok and tag.endswith("mesh1,1"):
+            r = json.loads(lines[-1])
+            out[tag]["result"] = r
+            a = log.get("train", {}).get("whole", {})    # phase 12 (a)
+            peak = r["memory"]["Total"] / 2 ** 30
+            flops = r["op_cost"]["flops"]
+            row = {"predicted_peak_gib": peak,
+                   "measured_peak_gib": a.get("mb1", {}).get("peak_gib"),
+                   "predicted_flops": flops,
+                   "phase12_flop_bound": a.get("flops"),
+                   "predicted_hbm_bytes": r["op_cost"]["hbm_bytes"],
+                   "roofline": r["roofline"]}
+            out["vs_phase12"] = row
+            mp, fb = row["measured_peak_gib"], row["phase12_flop_bound"]
+            print(f"dry-run qwen3-0.6b B 4 x 4,096 on (1, 1): predicted peak "
+                  f"{peak:.2f} GiB vs phase 12 (a)'s measured "
+                  + (f"{mp:.2f} GiB ({peak / mp:.3f}x)" if mp else "n/a")
+                  + f"; FLOPs {flops:.4e} vs phase 12's FLOP count "
+                  + (f"{fb:.4e} ({flops / fb:.3f}x)" if fb else "n/a")
+                  + f"; HBM bytes {row['predicted_hbm_bytes']:.4e}",
+                  flush=True)
+    log["dryrun"] = out
+
+
+def stop_dryruns(procs):
+    for _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mesh_phase(check, log, smi, dev, smoke_cache, dryruns):
+    """Phase 13: (a) and (b) on the card, then (c)'s dry-runs (started
+    before phase 11) awaited. Returns (a)'s mega runs' launches."""
+    launched = tune_phase(check, log, smi, dev, smoke_cache)
+    sharded_phase(check, log, smi, dev)
+    finish_dryruns(check, log, dryruns)
+    return launched
+
+
 # -- driver ----------------------------------------------------------------------
 
 SOURCES = {
@@ -4148,6 +4608,7 @@ def cards_main() -> int:
     from repro_torch.kernels import _build
 
     check = Checks()
+    own_tune_cache()
     smi = nvidia_smi()
     print(f"cards: {torch.cuda.device_count()}\n{smi}", flush=True)
     if torch.cuda.device_count() < 2:
@@ -4192,6 +4653,7 @@ def main() -> int:
     global INT_OPS_PER_S
     check = Checks()
     dev = torch.device("cuda")
+    smoke_cache = own_tune_cache()
     smi = nvidia_smi()
     log = {"torch": torch.__version__, "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
@@ -4323,18 +4785,29 @@ def main() -> int:
                                    f"sharded path")
     timed("profile", profile_phase, check, log)
     launch_probe("after the profiles", log)
-    # 11. the model side's server (plain PyTorch): no kernel of the eight
-    # is launched there (oracle iv)
-    kernels.reset_launches()
-    timed("serve", serve_phase, check, log, smi, dev)
-    served = kernels.launch_counts()
-    check(not any(served.values()), f"the serving path launched {served}")
-    # 12. the model side's trainer (plain PyTorch): no kernel of the eight
-    # is launched there either
-    kernels.reset_launches()
-    timed("train", train_phase, check, log, smi, dev)
-    trained = kernels.launch_counts()
-    check(not any(trained.values()), f"the training path launched {trained}")
+    # 13 (c): the dry-runs start on the CPU now, beside phases 11 and 12
+    dryruns = start_dryruns()
+    try:
+        # 11. the model side's server (plain PyTorch): no kernel of the
+        # eight is launched there (oracle iv)
+        kernels.reset_launches()
+        timed("serve", serve_phase, check, log, smi, dev)
+        served = kernels.launch_counts()
+        check(not any(served.values()), f"the serving path launched "
+                                        f"{served}")
+        # 12. the model side's trainer (plain PyTorch): no kernel of the
+        # eight is launched there either
+        kernels.reset_launches()
+        timed("train", train_phase, check, log, smi, dev)
+        trained = kernels.launch_counts()
+        check(not any(trained.values()), f"the training path launched "
+                                         f"{trained}")
+        # 13. the autotuner (its mega runs' launches: the tuned path), the
+        # model side's meshes and the dry-run
+        launches13 = timed("mesh", mesh_phase, check, log, smi, dev,
+                           smoke_cache, dryruns)
+    finally:
+        stop_dryruns(dryruns)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -4343,14 +4816,15 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": launches[name] + launches6[name]
-               + launches8[name] + launches9[name],
+               + launches8[name] + launches9[name] + launches13[name],
                "max_abs_err": err, "equal": err == 0, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms,
                "launches_by_path": {"unbatched": launches[name],
                                     "batched": launches6[name],
                                     "observability": launches8[name],
-                                    "sharded": launches9[name]}}
+                                    "sharded": launches9[name],
+                                    "tuned": launches13[name]}}
         if name in store_shapes:
             row["store_shapes"] = store_shapes[name]
         rows.append(row)

@@ -1,6 +1,7 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-Counterpart of ``repro.kernels.common`` (without its autotuner). Each
+With ``kernels.common`` (the autotuner), the counterpart of
+``repro.kernels.common``. Each
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``build/repro_torch/``
 at the root of the checkout. The file name carries a hash of the sources and

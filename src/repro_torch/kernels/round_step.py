@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build as B
+from repro_torch.kernels import common
 from repro_torch.kernels.buffer_fold import plain as fold_plain
 
 launches = 0            # kernel launches since the last reset (CUDA only)
@@ -35,6 +36,7 @@ REG_TALLY_P = 4         # largest P with registers per slot (csrc/round_step.cu)
 REG_TALLY_N = 16        # largest N with register tallies (a 512-thread block)
 VEC_BYTES = (16, 8, 4)  # int32 lanes' bytes, widest first (uint8: 4)
 STAGES = (3, 2)         # bulk plans' ring stages, most first
+BENCH_LAUNCHES = 5      # back-to-back launches a timed tuning sample
 
 _SIGNATURE = {"round_step_launch": [
     ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
@@ -69,21 +71,12 @@ def table_bytes(n: int, p: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
-         aligned: bool) -> Plan:
-    """The launch plan of one round: N nodes, P slots, K buffer slots,
-    ``elem_size``-byte elements, U columns; ``aligned`` when every operand's
-    base address is 16-byte aligned.
-
-    Rows of U·elem_size bytes, a multiple of 16, on aligned bases take the
-    bulk-copy ring: the widest lane vector (int32: 16, 8, 4 bytes; uint8:
-    4, one element a register as for int32) and the most
-    stages (3, 2) whose shared memory — the tables, the mbarriers, two
-    buffers of the S send rows (S = P for the per-origin fold, else 1) and
-    the stages of the (2 + K)·N input rows — fits 227 KB; failing that,
-    direct vector loads of the widest lane vector whose sends fit. Other
-    rows take direct loads of one element a lane over 32-column tiles.
-    Raises where even that does not fit."""
+def plans(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
+          aligned: bool) -> tuple:
+    """Every plan on the ladder :func:`plan` walks that fits SMEM_LIMIT, in
+    its order, so the first is :func:`plan`'s (the default the autotuner
+    must beat). Each computes the same round; they differ in the tile,
+    the lane vector and the copy ring."""
     s = p if per_origin and k else 1
     rows_in = (2 + k) * n
     tables = table_bytes(n, p)
@@ -101,13 +94,32 @@ def plan(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
     cands = [make(vb, st) for vb in vecs for st in STAGES] \
         + [make(vb, 0) for vb in vecs] \
         if aligned and (u * elem_size) % 16 == 0 else []
-    for pl in cands + [make(0, 0)]:
-        if pl.smem <= SMEM_LIMIT:
-            return pl
-    raise ValueError(
-        f"round_step: {n} nodes x {s} send rows of 32 {elem_size}-byte "
-        f"values need {make(0, 0).smem} bytes of shared memory per block; a "
-        f"block has {SMEM_LIMIT}")
+    fits = [pl for pl in cands + [make(0, 0)] if pl.smem <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"round_step: {n} nodes x {s} send rows of 32 {elem_size}-byte "
+            f"values need {make(0, 0).smem} bytes of shared memory per "
+            f"block; a block has {SMEM_LIMIT}")
+    return tuple(fits)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
+         aligned: bool) -> Plan:
+    """The launch plan of one round: N nodes, P slots, K buffer slots,
+    ``elem_size``-byte elements, U columns; ``aligned`` when every operand's
+    base address is 16-byte aligned.
+
+    Rows of U·elem_size bytes, a multiple of 16, on aligned bases take the
+    bulk-copy ring: the widest lane vector (int32: 16, 8, 4 bytes; uint8:
+    4, one element a register as for int32) and the most
+    stages (3, 2) whose shared memory — the tables, the mbarriers, two
+    buffers of the S send rows (S = P for the per-origin fold, else 1) and
+    the stages of the (2 + K)·N input rows — fits 227 KB; failing that,
+    direct vector loads of the widest lane vector whose sends fit. Other
+    rows take direct loads of one element a lane over 32-column tiles.
+    Raises where even that does not fit."""
+    return plans(n, p, k, per_origin, elem_size, u, aligned)[0]
 
 
 def plain(delta, x, buf, active, delivered, nbrs, rev, kind: str = "max",
@@ -152,24 +164,21 @@ def plain(delta, x, buf, active, delivered, nbrs, rev, kind: str = "max",
             ssend, torch.stack(cnt, -1), torch.stack(dsz, -1))
 
 
-def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
-            extracts, emit_inbox, pl=None):
-    global launches, last_launch
-    B.check_cuda("round_step", delta, x, buf, active, delivered, nbrs, rev)
+def _kernel(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
+            extracts, emit_inbox, pl):
+    """One launch under the plan ``pl``; the outputs of :func:`_launch`
+    and the blocks a config took. Counts nothing."""
     nb, n, u = x.shape
     p = nbrs.shape[-1]
     k = 0 if buf is None else buf.shape[0]
-    bo = None if buf is None else torch.empty_like(buf)
     dev = x.device
+    bo = None if buf is None else torch.empty_like(buf)
     xo = torch.empty_like(x)
     inbox = torch.empty((p, nb, n, u), dtype=x.dtype, device=dev) \
         if emit_inbox else None
     nodecnt = torch.zeros((nb, n, 2), dtype=torch.int32, device=dev)
     ssend, cnt, dsz = (torch.zeros((nb, n, p), dtype=torch.int32, device=dev)
                        for _ in range(3))
-    pl = pl or plan(n, p, k, per_origin, x.element_size(), u, all(
-        t is None or t.data_ptr() % 16 == 0
-        for t in (delta, x, buf, xo, bo, inbox)))
     blocks = ctypes.c_longlong(0)
     lib = B.library("round_step", _SIGNATURE)
     with B.launching(dev) as stream:
@@ -182,9 +191,37 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
             pl.stages, pl.threads, pl.table_bytes, pl.bar_bytes, pl.smem,
             ctypes.byref(blocks), stream)
     B.check_launch(lib, err, "round_step")
-    launches += -(-nb // MAX_CONFIGS)           # one launch a chunk
-    last_launch = (pl, blocks.value)
-    return xo, bo, inbox, nodecnt[..., 0], nodecnt[..., 1], ssend, cnt, dsz
+    return (xo, bo, inbox, nodecnt[..., 0], nodecnt[..., 1], ssend, cnt,
+            dsz), blocks.value
+
+
+def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
+            extracts, emit_inbox, pl=None):
+    """Launch the kernel under ``pl``, or, given none, under the plan
+    ``ops.sync_round_block`` resolves (autotuned; with ``REPRO_AUTOTUNE=1``
+    a cache miss times every candidate on these operands first)."""
+    global launches, last_launch
+    B.check_cuda("round_step", delta, x, buf, active, delivered, nbrs, rev)
+    args = (delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
+            extracts, emit_inbox)
+    if pl is None:
+        from repro_torch.kernels import ops
+        nb, n, u = x.shape
+        bench = None
+        if common.autotune_mode() == "tune":
+            def bench(cand):
+                for _ in range(BENCH_LAUNCHES):
+                    _kernel(*args, cand)
+        pl, _ = ops.sync_round_block(
+            nb, n, u, p=nbrs.shape[-1], k=0 if buf is None else buf.shape[0],
+            per_origin=per_origin, kind=kind, elem_size=x.element_size(),
+            aligned=all(t is None or t.data_ptr() % 16 == 0
+                        for t in (delta, x, buf)),
+            device=x.device, tune_bench=bench)
+    out, blocks = _kernel(*args, pl)
+    launches += -(-x.shape[0] // MAX_CONFIGS)   # one launch a chunk
+    last_launch = (pl, blocks)
+    return out
 
 
 def round_step(delta, x, buf, active, delivered, nbrs, rev, *,

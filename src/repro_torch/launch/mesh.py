@@ -1,5 +1,7 @@
-"""Device meshes for the sweep's config axis and the store's object axis,
-PyTorch counterpart of the sweep and store meshes of ``repro.launch.mesh``.
+"""Device meshes, PyTorch port of ``repro.launch.mesh``: the model side's
+``torch.distributed`` ``DeviceMesh``es (``make_mesh``,
+``make_production_mesh``, and ``fake_process_group`` for a dry-run), and
+the meshes of the sweep's config axis and the store's object axis.
 
 A :class:`Mesh` is the list of ``torch.device``s along one named axis;
 ``shape`` maps the axis name to its extent, as a JAX mesh's does. The
@@ -21,9 +23,12 @@ four-card mesh runs.
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.lattice import Lattice, tree_leaves
 from repro_torch.sync import treeops as T
@@ -31,6 +36,64 @@ from repro_torch.sync.simulator import resolve_device
 
 SWEEP_AXIS = "config"
 STORE_AXIS = "object"
+
+
+# -- the model side's meshes (torch.distributed DeviceMesh) -------------------
+
+def make_mesh(shape, axes, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` with named dims ``axes`` (tests use
+    small ones, e.g. (2, 2)) over the process group this process belongs
+    to, whose size must be the mesh's. Raises where there is none: this
+    process's rank, world size and rendezvous are the caller's
+    (``dist.init_process_group``; ``torchrun`` sets them), or, for a
+    dry-run, :func:`fake_process_group`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    size = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"make_mesh{shape}: no process group; initialise one of "
+            f"{size} ranks first (dist.init_process_group, or torchrun)")
+    if dist.get_world_size() != size:
+        raise RuntimeError(
+            f"make_mesh{shape}: the process group has "
+            f"{dist.get_world_size()} ranks, the mesh needs {size}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"make_mesh{shape}: device_type 'cuda' but no "
+                           f"card is visible")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """Single pod: 256 devices (16 data × 16 model). Multi-pod: 2 × 256."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """This process as rank 0 of a ``"fake"`` process group of
+    ``world_size`` ranks, whose collectives return at once without moving
+    data: a mesh of any size in one process, for a dry-run under
+    ``FakeTensorMode`` (the counterpart of the JAX package's placeholder
+    host devices). The group is destroyed on exit. (``FakeStore`` lives in
+    torch's private testing package; this is its one use.)"""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: this process already "
+                           "belongs to a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 class Mesh(NamedTuple):

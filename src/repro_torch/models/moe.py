@@ -10,17 +10,28 @@ slot (``e·cap``) and count as dropped.
 Top-k takes a stable descending sort of the fp32 router probabilities, so
 that among equal probabilities the lower expert index wins on every
 device, as ``jax.lax.top_k`` does.
+
+Under a mesh (``x`` a DTensor) the groups shard over the data axes, as the
+JAX hints keep them: the routing — router logits, top-k, the sort, the
+capacity scatter and the combine — runs on each rank's own groups
+(``to_local`` / ``from_local`` over G), so routing issues no collective;
+the expert products run as DTensor products over the stacked weights,
+their activations f-sharded over the model axis; the aux loss and the drop
+fraction average the local means over the data ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models.config import MoEConfig
+from repro_torch.models.params import Spec
 
 
 class MoEMetrics(NamedTuple):
@@ -35,8 +46,11 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(cfg: MoEConfig, x, wr, wg, wu, wd):
+def moe_ffn(cfg: MoEConfig, x, wr, wg, wu, wd, hints=None):
     """x: [G, T, d]; wr: [d, E]; wg/wu: [E, d, f]; wd: [E, f, d].
+
+    ``hints``: ShardingHints; a DTensor ``x`` needs hints that name the
+    data axes (the axes its groups shard over).
 
     Returns (y [G, T, d], MoEMetrics).
     """
@@ -45,8 +59,64 @@ def moe_ffn(cfg: MoEConfig, x, wr, wg, wu, wd):
     if gl is not None and x.shape[1] > gl and x.shape[1] % gl == 0:
         g0, t0, d0 = x.shape
         out, mm = moe_ffn(dataclasses.replace(cfg, group_len=None),
-                          x.reshape(g0 * (t0 // gl), gl, d0), wr, wg, wu, wd)
+                          x.reshape(g0 * (t0 // gl), gl, d0), wr, wg, wu, wd,
+                          hints=hints)
         return out.reshape(g0, t0, d0), mm
+    if not isinstance(x, DTensor):
+        out, means = _moe_local(cfg, x, wr, lambda h: _experts(h, wg, wu, wd))
+        return out, _metrics(cfg, *means)
+    if hints is None or hints.data_axes is None:
+        raise ValueError("moe_ffn: a sharded x needs ShardingHints naming "
+                         "the data axes its groups shard over")
+    mesh = x.device_mesh
+    groups = hints.batch_only(x)                  # G over the data axes
+    rows = groups.placements
+    # the ranks' gradients of the router differ by their groups: summed
+    # over the data dims, the same on the model dim
+    over_data = [Replicate() if p == Replicate() else Partial()
+                 for p in rows]
+    wr = wr.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=over_data)
+    ranks = math.prod(mesh.size(i) for i, p in enumerate(rows)
+                      if p != Replicate())
+
+    def experts(h):                               # [G_loc, E, cap, d]
+        hd = DTensor.from_local(h, mesh, rows, run_check=False)
+        y = _experts(hd, wg, wu, wd, hints)
+        return hints.batch_only(y).to_local()
+
+    out, means = _moe_local(cfg, groups.to_local(), wr, experts)
+    # the local means, averaged over the ranks G shards across (a sum of
+    # the means / ranks, whose gradient is 1 / ranks on each)
+    means = [DTensor.from_local(v / ranks, mesh, over_data, run_check=False)
+             .redistribute(mesh, [Replicate()] * mesh.ndim) for v in means]
+    return (DTensor.from_local(out, mesh, rows, run_check=False),
+            _metrics(cfg, *means))
+
+
+def _experts(h, wg, wu, wd, hints=None):
+    """The grouped expert FFN: h [G, E, cap, d] -> [G, E, cap, d]. Under
+    hints the weights are gathered over their FSDP dim and keep f sharded
+    over the model axis, as the activations are."""
+    if hints is not None:
+        mp = hints.model_axis
+        wg, wu = (hints.constrain(w, Spec(None, None, mp)) for w in (wg, wu))
+        wd = hints.constrain(wd, Spec(None, mp, None))
+    a = torch.einsum("gecd,edf->gecf", h, wg)
+    b = torch.einsum("gecd,edf->gecf", h, wu)
+    if hints is not None:
+        act_spec = Spec(hints.data_axes, None, None, hints.model_axis)
+        a, b = hints.constrain(a, act_spec), hints.constrain(b, act_spec)
+    act = F.silu(a.float()).to(h.dtype) * b
+    return torch.einsum("gecf,efd->gecd", act, wd)
+
+
+def _moe_local(cfg: MoEConfig, x, wr, experts):
+    """The routing on plain tensors (all groups, or a rank's own): x
+    [G, T, d], wr [d, E]; ``experts(h)`` the expert FFN on the dispatch
+    buffer [G, E, cap, d]. Returns (y [G, T, d], (f_e, p_e, dropped)): the
+    expert load and router probability means and the drop fraction over
+    these groups."""
     g_, t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = max(int(t * k / e * cfg.capacity_factor), 1)
@@ -75,11 +145,7 @@ def moe_ffn(cfg: MoEConfig, x, wr, wg, wu, wd):
     xbuf.scatter_(1, slot[..., None].expand(g_, tk, d),
                   torch.where(keep[..., None], x_sorted, 0))
 
-    h = xbuf[:, : e * cap].reshape(g_, e, cap, d)
-    a = torch.einsum("gecd,edf->gecf", h, wg)
-    b = torch.einsum("gecd,edf->gecf", h, wu)
-    act = F.silu(a.float()).to(x.dtype) * b
-    y = torch.einsum("gecf,efd->gecd", act, wd)
+    y = experts(xbuf[:, : e * cap].reshape(g_, e, cap, d))
 
     ybuf = torch.cat([y.reshape(g_, e * cap, d),
                       torch.zeros((g_, 1, d), dtype=y.dtype, device=dev)],
@@ -90,9 +156,13 @@ def moe_ffn(cfg: MoEConfig, x, wr, wg, wu, wd):
     y_tok = y_flat.reshape(g_, t, k, d)
     out = torch.sum(y_tok * gate[..., None].to(y.dtype), dim=2)
 
-    # Switch-style load balance: E · Σ_e f_e · P_e
     f_e = F.one_hot(eidx, e).float().sum(dim=2).mean(dim=(0, 1))
     p_e = probs.mean(dim=(0, 1))
-    aux = e * torch.sum(f_e * p_e) * cfg.router_aux_weight
-    dropped = 1.0 - keep.float().mean()
-    return out, MoEMetrics(aux_loss=aux, dropped_frac=dropped)
+    return out, (f_e, p_e, 1.0 - keep.float().mean())
+
+
+def _metrics(cfg: MoEConfig, f_e, p_e, dropped) -> MoEMetrics:
+    """Switch-style load balance, E · Σ_e f_e · P_e, and the drop fraction
+    from the routing's (f_e, p_e, dropped) means."""
+    aux = cfg.num_experts * torch.sum(f_e * p_e) * cfg.router_aux_weight
+    return MoEMetrics(aux_loss=aux, dropped_frac=dropped)

@@ -3,11 +3,13 @@ port of ``repro.models.params``.
 
 Params are nested dicts (and lists) of ``ParamDef`` (shape, logical axes,
 init) that materialise either as real tensors (``init_tree``) or as
-``meta``-device stand-ins that allocate nothing (``tree_shapes``). The
-logical axes are kept so that the trees equal the JAX package's; mapping
-them onto a device mesh (``TRAIN_RULES``, ``SERVE_RULES``,
-``logical_to_spec``) has no meaning on one card and comes with the model
-meshes.
+``meta``-device stand-ins that allocate nothing (``tree_shapes``).
+
+Logical axes translate to a per-dim ``Spec`` (the counterpart of JAX's
+``PartitionSpec``) via a rules table (MaxText-style): training rules
+implement ZeRO-3/FSDP×TP (weights shard over the data axes and the model
+axis), serving rules shard over the model axis only. ``placements`` turns a
+``Spec`` into DTensor placements on a ``DeviceMesh`` with named dims.
 
 Each leaf draws from its own ``torch.Generator`` on the target device,
 seeded by a CRC-32 of the run's seed and the leaf's path, so a tree is the
@@ -24,6 +26,7 @@ import zlib
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.sync.simulator import resolve_device
 
@@ -48,6 +51,116 @@ def tree_map(fn, tree, path: str = ""):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, f"{path}[{i}]") for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+# logical axis -> mesh axes, per execution mode
+TRAIN_RULES = {
+    "fsdp": ("pod", "data"),   # weight shards over data axes (ZeRO-3)
+    "tp": ("model",),          # tensor-parallel dim
+    "stack": None,             # stacked layer-group dim (the JAX layout)
+    "expert": None,            # expert dim (baseline: FSDP'd via fsdp dim)
+    None: None,
+}
+SERVE_RULES = {
+    "fsdp": None,
+    "tp": ("model",),
+    "stack": None,
+    "expert": None,
+    None: None,
+}
+
+
+class Spec:
+    """A per-dim sharding spec: each entry None (replicated), a mesh axis
+    name, or a tuple of names (that dim split over them, the first major),
+    element for element what JAX's ``PartitionSpec`` holds. It iterates
+    and compares as the tuple of its entries, but is not a tuple, so the
+    tree helpers take it as one leaf."""
+
+    __slots__ = ("dims",)
+
+    def __init__(self, *dims):
+        self.dims = tuple(dims)
+
+    def __iter__(self):
+        return iter(self.dims)
+
+    def __len__(self):
+        return len(self.dims)
+
+    def __getitem__(self, i):
+        return self.dims[i]
+
+    def __eq__(self, other):
+        if isinstance(other, Spec):
+            return self.dims == other.dims
+        return isinstance(other, tuple) and self.dims == other
+
+    def __hash__(self):
+        return hash(self.dims)
+
+    def __repr__(self):
+        return f"Spec{self.dims!r}"
+
+
+def axis_names(mesh) -> tuple:
+    """The named axes of a ``DeviceMesh`` (``mesh_dim_names``) or of any
+    stand-in with ``axis_names``, in mesh order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def logical_to_spec(logical, rules, mesh_axes) -> Spec:
+    out = []
+    for ax in logical:
+        m = rules.get(ax, None)
+        if m is None:
+            out.append(None)
+        else:
+            present = tuple(a for a in m if a in mesh_axes)
+            out.append(present if len(present) > 1
+                       else (present[0] if present else None))
+    return Spec(*out)
+
+
+def tree_specs(defs, rules, mesh_axes):
+    return tree_map(lambda _, d: logical_to_spec(d.logical, rules, mesh_axes),
+                    defs)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: mesh dim i is
+    ``Shard(d)`` where tensor dim d names its axis, else ``Replicate()``.
+    A dim over several axes is ``Shard(d)`` on each, in mesh order (the
+    first named axis major, as in JAX)."""
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"{spec}: axes of dim {d} must follow the "
+                             f"mesh's order {names}")
+        for a in axes:
+            i = names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"{spec}: mesh axis {a!r} shards two dims")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def shard_range(t, dim: int):
+    """(start, length) of this rank's shard of the DTensor ``t`` along
+    ``dim`` (nested ``Shard(dim)`` placements in mesh order, chunked as
+    DTensor chunks)."""
+    start, size = 0, t.shape[dim]
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == dim % t.dim():
+            n, r = t.device_mesh.size(i), t.device_mesh.get_local_rank(i)
+            chunk = -(-size // n)
+            start += min(r * chunk, size)
+            size = max(0, min(chunk, size - r * chunk))
+    return start, size
 
 
 def tree_shapes(defs):

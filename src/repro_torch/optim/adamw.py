@@ -81,11 +81,14 @@ class AdamW:
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
             master=tree_map(lambda a: a.detach().to(torch.float32), params),
-            mu=tree_map(lambda a: torch.zeros(
-                a.shape, dtype=self.moments_dtype, device=a.device), params),
-            nu=tree_map(lambda a: torch.zeros(
-                a.shape, dtype=self.moments_dtype, device=a.device), params),
+            mu=tree_map(self._zeros, params),
+            nu=tree_map(self._zeros, params),
         )
+
+    def _zeros(self, a):
+        # zeros_like keeps a sharded leaf's placements
+        return torch.zeros_like(a, dtype=self.moments_dtype,
+                                memory_format=torch.contiguous_format)
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState):

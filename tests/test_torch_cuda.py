@@ -994,3 +994,155 @@ def test_train_100m_tiny_on_the_card(sm90, tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[-1].endswith(
         "tokens consumed (CRDT progress counter): 7,680")
+
+
+# -- the autotuner and the model side's meshes (slice 10) ----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+@pytest.mark.parametrize("topo_name", ["mesh9d4", "mesh40d4"])
+@pytest.mark.parametrize("w", ["u1024", "ragged", "u1001"])
+def test_every_round_step_plan_equals_plain(sm90, kind_name, flavor,
+                                            topo_name, w, rng):
+    """Each candidate the autotuner may pick (``round_step.plans``) computes
+    the plain version's round exactly, on B = 2 configs."""
+    from repro_torch.kernels import _build as KB
+
+    topo = {"mesh9d4": lambda: topology.partial_mesh(9, 4),
+            "mesh40d4": lambda: topology.partial_mesh(40, 4)}[topo_name]()
+    (u, _), n, p, b = width(w, kind_name), topo.num_nodes, topo.max_degree, 2
+    k, per_origin, extracts = FLAVORS[flavor]
+    k = p + 1 if k == "P+1" else k
+    arrays = [rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, k, b, n, u) if k else None,
+              (rng.integers(0, 2, size=(b, n, p))
+               * topo.mask.numpy()).astype(np.int32),
+              rng.integers(0, 2, size=(b, n)).astype(np.int32) if k else None]
+    dev = [None if a is None else both(a, sm90)[1] for a in arrays]
+    kind = KINDS[kind_name][0]
+    delta, x = (KB.kernel_view(t, kind) for t in dev[:2])
+    buf = None if dev[2] is None else KB.kernel_view(dev[2], kind)
+    args = (delta, x, buf, dev[3], dev[4], topo.nbrs.to(sm90),
+            topo.rev.to(sm90), kind, per_origin, extracts, not extracts)
+    want = kstep.plain(*args)
+    cands = kstep.plans(n, p, k, per_origin, x.element_size(), u, True)
+    assert cands[0] == kstep.plan(n, p, k, per_origin, x.element_size(), u,
+                                  True)
+    for pl in cands:
+        got = kstep._launch(*args, pl=pl)
+        torch.cuda.synchronize()
+        for nm, g, wv in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                              "ssend", "cnt", "dsz"), got, want):
+            assert (g is None) == (wv is None), (pl, nm)
+            if g is not None:
+                assert torch.equal(g, wv), (pl, nm)
+
+
+@pytest.mark.cuda
+def test_sync_round_block_tunes_on_the_card(sm90, tmp_path, monkeypatch):
+    """``REPRO_AUTOTUNE=1`` times every candidate with CUDA events into a
+    fresh file (one key, named by the card), and a later call resolves the
+    winner from it; ``round_step`` then launches that plan."""
+    import json
+
+    from repro_torch.kernels import common
+
+    path = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    common._TUNE_MEM.clear()
+    topo = topology.partial_mesh(15, 4).on(sm90)
+    b, n, u, p, k = 1, 15, 1 << 16, 4, 5
+    g = torch.Generator(device=sm90).manual_seed(3)
+    ints = [torch.randint(0, 50, s, generator=g, device=sm90,
+                          dtype=torch.int32)
+            for s in ((b, n, u), (b, n, u), (k, b, n, u))]
+    args = (*ints, topo.mask.to(torch.int32)[None].contiguous(),
+            torch.ones((b, n), dtype=torch.int32, device=sm90), topo.nbrs,
+            topo.rev)
+    kw = dict(kind="max", per_origin=True, extracts=True, emit_inbox=False)
+    try:
+        kstep.round_step(*args, **kw)                # tunes on a cache miss
+        torch.cuda.synchronize()
+        (key, entry), = json.loads(path.read_text()).items()
+        assert common.backend_key(sm90) in key
+        assert common.backend_key(sm90).endswith("-sm90")
+        cands = kstep.plans(n, p, k, True, 4, u, True)
+        assert len(entry["timings_s"]) == len(cands)
+        win = kstep.Plan(*entry["config"])
+        assert win in cands
+        common._TUNE_MEM.clear()
+        monkeypatch.setenv("REPRO_AUTOTUNE", "")
+        assert ops.sync_round_block(b, n, u, p=p, k=k, per_origin=True,
+                                    device=sm90) == (win, "cache")
+        got = kstep.round_step(*args, **kw)
+        assert kstep.last_launch[0] == win
+        want = kstep.plain(*args[:7], "max", True, True, False)
+        for a, w in zip(got, want):
+            assert (a is None) == (w is None)
+            if a is not None:
+                assert torch.equal(a, w)
+    finally:
+        common._TUNE_MEM.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b"])
+def test_one_rank_mesh_train_step_equals_the_plain_one(sm90, arch):
+    """A one-rank NCCL group's (1, 1) mesh on the card: the smoke config's
+    float32 weights placed by ``param_specs`` / ``to_named``, a train step
+    with hints and ``grad_specs`` equal to the plain one (loss and params
+    within 1e-4 of their scale). The group is torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import sharding as SH
+    from repro_torch.train import steps as TS
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_smoke_config(arch)
+        model = TT.init_params(cfg, seed=0, device=sm90)
+        model = TT.Decoder(cfg, tree_map(lambda _, t: t.float(),
+                                         model.tensors()))
+        g = torch.Generator(device=sm90).manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=g, device=sm90,
+                                         dtype=torch.int32),
+                 "labels": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=g, device=sm90,
+                                         dtype=torch.int32),
+                 "loss_mask": torch.ones((2, 16), device=sm90)}
+        hints = TT.ShardingHints(data_axes="data", model_axis="model")
+        p_sp = SH.param_specs(cfg, mesh, "train")
+        smodel = TT.Decoder(cfg, SH.to_named(model.tensors(), p_sp, mesh))
+        sbatch = SH.to_named(batch, SH.batch_specs(cfg, mesh, batch), mesh)
+        optim = AdamW(lr=constant(1e-3))
+        new, m = TS.make_train_step(cfg, optim)(
+            TS.init_train_state(cfg, optim, model), batch)
+        snew, sm = TS.make_train_step(cfg, optim, hints=hints,
+                                      grad_specs=p_sp)(
+            TS.init_train_state(cfg, optim, smodel), sbatch)
+        loss, sloss = float(m["loss"]), float(sm["loss"].full_tensor())
+        assert abs(sloss - loss) <= 1e-4 * abs(loss)
+        for a, w in zip(tree_leaves(SH.full_tree(snew.params.tensors())),
+                        tree_leaves(new.params.tensors())):
+            assert float((a - w).abs().max()) <= 1e-4 * max(
+                float(w.abs().max()), 1.0)
+    finally:
+        dist.destroy_process_group()

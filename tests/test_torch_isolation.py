@@ -10,7 +10,8 @@ alike, and so do ``simulate_sweep``, ``simulate_store``, the gossip runtime
 (``generate``, ``init_params``, ``init_cache``, ``python -m
 repro_torch.launch.serve``) and its training (``launch.train.run``,
 ``train_100m.main``, ``data.batch_for_step``, ``python -m
-repro_torch.train_100m``)."""
+repro_torch.train_100m``) and the model meshes (``make_mesh``,
+``make_production_mesh``)."""
 
 import ast
 import os
@@ -217,3 +218,29 @@ def test_training_defaults_to_the_card():
         capture_output=True, text=True, timeout=120)
     assert cli.returncode != 0 and "no CUDA device" in cli.stderr
     assert cli.stdout == ""
+
+
+def test_model_meshes_default_to_the_card(tmp_path):
+    """``make_mesh`` / ``make_production_mesh`` build CUDA meshes unless told
+    otherwise: in a one-rank gloo group without a card they raise rather
+    than fall back to the CPU (and the production mesh names its size)."""
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "from repro_torch.launch.mesh import make_mesh, make_production_mesh\n"
+        f"dist.init_process_group('gloo', store=dist.FileStore("
+        f"{str(tmp_path / 'store')!r}, 1), rank=0, world_size=1)\n"
+        "for f in (lambda: make_mesh((1, 1), ('data', 'model')),\n"
+        "          make_production_mesh):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        print('RAISED', e)\n"
+        "m = make_mesh((1, 1), ('data', 'model'), device_type='cpu')\n"
+        "print('CPU', m.device_type, m.mesh_dim_names)\n"
+        "dist.destroy_process_group()\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "RAISED" in lines[0] and "no card" in lines[0], out.stdout
+    assert "RAISED" in lines[1] and "256" in lines[1], out.stdout
+    assert lines[2] == "CPU cpu ('data', 'model')", out.stdout
