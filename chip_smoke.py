@@ -74,16 +74,21 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    ``ops.lex_join_delta``, ``ops.join`` and ``ops.delta_extract``; LWWMap
    at 65,536 keys under 10% loss and in a digest_driven join, each run on
    the card equal to the CPU run; ``repro_torch.quickstart`` on the card
-   equal to the CPU;
+   equal to the CPU; ``repro_torch.retwis_app`` on the card equal to the
+   CPU and to the JAX example's numbers (``RETWIS_APP_EXPECT``), launching
+   nothing;
 8. observability and the Scuttlebutt baseline, launch counters zeroed
-   again (each part's seconds printed):
+   again (each part's seconds and its oracles' seconds printed):
    (a) ``fig_telemetry.json``'s 18 cells value for value on three engines;
    (b) ``benchmarks/fig_provenance.py``'s scenarios on three engines and
    the CPU, all equal, attribution exhaustive, bprr back-propagating
    nothing, the two anomalies classified; (c) GMap 4,194,304 keys bprr /
    classic with telemetry and provenance on three engines: the run
    unchanged, the channels 27,962 × the GCounter(15) run's, mega timed
-   off / telemetry / both; (d) Scuttlebutt's fig7 rows, fig10 column and
+   off / telemetry / both; in (a)-(c) every run's channels (and
+   provenance) also equal ``repro_torch.obs.oracle``'s replays on the
+   card, the [15, 4,194,304] lineage matrices included, and no oracle
+   call launches a kernel; (d) Scuttlebutt's fig7 rows, fig10 column and
    fig9 entries, and its GMap codec at 4,194,304 keys; (e) phase 6's
    sweeps and the committed Retwis store with telemetry and provenance,
    every cell and object equal to its single run, and Retwis at the paper
@@ -2039,6 +2044,44 @@ def quickstart_phase(check, log):
     log["quickstart"] = {"card": card, "wall_s": wall}
 
 
+# the JAX example's numbers (examples/retwis_app.py: simulate_store with
+# wide_metrics=False, the example's spec); tests/test_torch_retwis_app.py
+# holds them equal to the JAX package
+RETWIS_APP_EXPECT = {
+    "total_tx_bytes": 678836.0, "converged_by": 30,
+    "hottest": [{"class": "followers", "object": 0, "tx_bytes": 23520.0,
+                 "elements": 1176, "converged": 28},
+                {"class": "wall", "object": 1, "tx_bytes": 245014.0,
+                 "elements": 814, "converged": 27},
+                {"class": "timeline", "object": 2, "tx_bytes": 23439.0,
+                 "elements": 601, "converged": 26}],
+    "footprint_bytes": 87840.0}
+
+
+def retwis_app_phase(check, log):
+    """``repro_torch.retwis_app`` on the card and on the CPU: the same
+    numbers and lines, equal to the JAX example's; no kernel launched (the
+    store's default engine is the reference)."""
+    from repro_torch import kernels, retwis_app
+
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    card = retwis_app.run("cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = retwis_app.run("cpu")
+    cpu_s = time.perf_counter() - t0
+    check(kernels.launch_counts() == before,
+          f"retwis_app launched {kernels.launch_counts()} (before {before})")
+    check(card == cpu, f"retwis_app: card {card} vs cpu {cpu}")
+    got = {k: card[k] for k in RETWIS_APP_EXPECT}
+    check(got == RETWIS_APP_EXPECT,
+          f"retwis_app: {got} vs the JAX example's {RETWIS_APP_EXPECT}")
+    print(f"retwis_app: {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU",
+          flush=True)
+    log["retwis_app"] = {"card_s": card_s, "cpu_s": cpu_s}
+
+
 def profile_rounds(check, tag, run):
     """``torch.profiler`` over one call of ``run`` (after a warm-up call):
     device time by kernel, and the device's busy share of the wall time.
@@ -2138,21 +2181,69 @@ def obs_fields(r):
     return out
 
 
+def equal_values(x, y) -> bool:
+    """Two host arrays, or two tensors (compared on the first one's
+    device), equal in shape and value."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return torch.equal(x, y.to(x.device))
+    return np.array_equal(x, y)
+
+
 def same_obs(a, b) -> bool:
     """Equal runs (metrics, convergence, final states) with equal
     observability channels and matrices (tensors compared on the first
     run's device)."""
-    import numpy as np
-    import torch
-
-    def equal(x, y):
-        if isinstance(x, torch.Tensor):
-            return torch.equal(x, y.to(x.device))
-        return np.array_equal(x, y)
-
     fa, fb = obs_fields(a), obs_fields(b)
     return same_run(a, b) and fa.keys() == fb.keys() and all(
-        equal(fa[k], fb[k]) for k in fa)
+        equal_values(fa[k], fb[k]) for k in fa)
+
+
+class Oracles:
+    """The observability oracles (``repro_torch.obs.oracle``: replays that
+    share no code with the engines' channels) on the card, held against
+    runs; every oracle call launches no kernel, and their seconds add up
+    in ``seconds``."""
+
+    def __init__(self, check):
+        self.check, self.seconds, self.calls = check, 0.0, 0
+
+    def hold(self, tag, runs, call, prov=False):
+        """``call(oracle_fn)`` runs an oracle with the runs' arguments on
+        the card: ``oracle_channels`` must equal every run's telemetry
+        and, with ``prov``, ``oracle_provenance`` its provenance (the
+        matrices compared on the card), field for field. Returns the two
+        oracles' seconds (the second 0.0 without ``prov``)."""
+        import torch
+
+        from repro_torch import kernels
+        from repro_torch.obs import oracle
+
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        ch = call(oracle.oracle_channels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pv = call(oracle.oracle_provenance) if prov else None
+        torch.cuda.synchronize()
+        secs = (t1 - t0, time.perf_counter() - t1 if prov else 0.0)
+        self.seconds += sum(secs)
+        self.calls += 1 + prov
+        self.check(kernels.launch_counts() == before,
+                   f"{tag}: an oracle launched a kernel")
+        for e, r in runs.items():
+            for f, want in zip(ch._fields[:6], ch[:6]):
+                self.check(equal_values(getattr(r.telemetry, f), want),
+                           f"{tag}: {e} telemetry {f} differs from "
+                           f"oracle_channels")
+            if prov:
+                for f, want in zip(pv._fields[:11], pv[:11]):
+                    self.check(equal_values(want, getattr(r.provenance, f)),
+                               f"{tag}: {e} provenance {f} differs from "
+                               f"oracle_provenance")
+        return secs
 
 
 def fig_telemetry_row(r):
@@ -2192,12 +2283,12 @@ def obs_engines(check, launches, tag, algo, rounds, fn, cpu=False):
     return runs
 
 
-def obs_fig_telemetry(check, launches, trace):
+def obs_fig_telemetry(check, launches, trace, oracles):
     """(a) ``benchmarks/results/fig_telemetry.json``'s 18 cells, value for
     value, on the three engines: the fig7 GSet workload on tree and mesh,
     the mesh at 10% loss, and the 25% join of state / state_driven /
     digest_driven, rebuilt here as ``benchmarks/fig_telemetry.py`` builds
-    them."""
+    them; every cell's channels equal ``oracle_channels`` on the card."""
     import torch
 
     from repro_torch.core import GSet
@@ -2219,12 +2310,14 @@ def obs_fig_telemetry(check, launches, trace):
     for name, topo, faults, rows in scen:
         for algo, row in rows.items():
             want = {k: v for k, v in row.items() if k != "wall_s"}
+            tag = f"fig_telemetry {name} {algo}"
+            args = (algo, lat, topo, op, events, quiet)
             runs = obs_engines(
-                check, launches, f"fig_telemetry {name} {algo}", algo,
-                events + quiet,
-                lambda e, d: simulate(algo, lat, topo, op, events, quiet,
-                                      faults=faults, engine=e,
+                check, launches, tag, algo, events + quiet,
+                lambda e, d: simulate(*args, faults=faults, engine=e,
                                       telemetry=TelemetrySpec(), device=d))
+            oracles.hold(tag, runs, lambda f: f(*args, faults=faults,
+                                                device="cuda"))
             for e, r in runs.items():
                 got = fig_telemetry_row(r)
                 check(got == want, f"fig_telemetry {name} {algo} {e}: "
@@ -2236,14 +2329,17 @@ def obs_fig_telemetry(check, launches, trace):
     x0 = join_x0(n, OBS_JOIN_U, fig["join_ratio"])
     for algo, row in fig["join"].items():
         want = {k: v for k, v in row.items() if k != "wall_s"}
+        tag = f"fig_telemetry join {algo}"
+        args = (algo, GSet(OBS_JOIN_U).lattice, mesh, no_op, 0,
+                OBS_JOIN_ROUNDS)
         runs = obs_engines(
-            check, launches, f"fig_telemetry join {algo}", algo,
-            OBS_JOIN_ROUNDS,
-            lambda e, d: simulate(algo, GSet(OBS_JOIN_U).lattice, mesh,
-                                  no_op, 0, OBS_JOIN_ROUNDS,
-                                  x0=x0, digest=DigestSpec(64),
+            check, launches, tag, algo, OBS_JOIN_ROUNDS,
+            lambda e, d: simulate(*args, x0=x0, digest=DigestSpec(64),
                                   track_convergence=True, engine=e,
                                   telemetry=TelemetrySpec(), device=d))
+        oracles.hold(tag, runs, lambda f: f(*args, x0=x0,
+                                            digest=DigestSpec(64),
+                                            device="cuda"))
         for e, r in runs.items():
             got = fig_telemetry_row(r)
             check(got == want, f"fig_telemetry join {algo} {e}: {got} vs "
@@ -2253,14 +2349,16 @@ def obs_fig_telemetry(check, launches, trace):
     return {"cells": cells}
 
 
-def obs_fig_provenance(check, launches, trace):
+def obs_fig_provenance(check, launches, trace, oracles):
     """(b) ``benchmarks/fig_provenance.py``'s scenarios (no committed
     result): the fig7 GSet workload on tree and mesh and the mesh at 10%
     loss with telemetry and provenance, and the two anomaly runs, each on
-    three engines and on the CPU, all equal; waste_bp + waste_cp == recv
-    − novel for every (round, node); bprr back-propagates nothing; the
-    joining replica under bprr is non-convergence, the partition under
-    state fault stalls, and state_driven's join is not flagged."""
+    three engines and on the CPU, all equal, and equal to
+    ``oracle_channels`` (and ``oracle_provenance``) on the card; waste_bp
+    + waste_cp == recv − novel for every (round, node); bprr
+    back-propagates nothing; the joining replica under bprr is
+    non-convergence, the partition under state fault stalls, and
+    state_driven's join is not flagged."""
     import numpy as np
 
     from repro_torch.core import GSet
@@ -2280,13 +2378,15 @@ def obs_fig_provenance(check, launches, trace):
     for name, topo, faults in scen:
         for algo in ("state", "classic", "bp", "rr", "bprr"):
             tag = f"fig_provenance {name} {algo}"
+            args = (algo, lat, topo, op, events, quiet)
             runs = obs_engines(
                 check, launches, tag, algo, events + quiet,
-                lambda e, d: simulate(algo, lat, topo, op, events, quiet,
-                                      faults=faults, engine=e,
+                lambda e, d: simulate(*args, faults=faults, engine=e,
                                       telemetry=TelemetrySpec(),
                                       provenance=ProvenanceSpec(), device=d),
                 cpu=True)
+            oracles.hold(tag, runs, lambda f: f(*args, faults=faults,
+                                                device="cuda"), prov=True)
             r = runs["mega"]
             p, t = r.provenance, r.telemetry
             check(np.array_equal(p.waste_bp.astype(np.int64) + p.waste_cp,
@@ -2304,13 +2404,16 @@ def obs_fig_provenance(check, launches, trace):
     x0 = join_x0(n, OBS_JOIN_U, 0.25)
     stalls = {}
     for algo in ("bprr", "state_driven"):
+        args = (algo, GSet(OBS_JOIN_U).lattice, mesh, no_op, 0,
+                OBS_JOIN_ROUNDS)
         runs = obs_engines(
             check, launches, f"anomaly join {algo}", algo, OBS_JOIN_ROUNDS,
-            lambda e, d: simulate(algo, GSet(OBS_JOIN_U).lattice, mesh,
-                                  no_op, 0, OBS_JOIN_ROUNDS, x0=x0,
-                                  track_convergence=True, engine=e,
-                                  telemetry=TelemetrySpec(), device=d),
+            lambda e, d: simulate(*args, x0=x0, track_convergence=True,
+                                  engine=e, telemetry=TelemetrySpec(),
+                                  device=d),
             cpu=True)
+        oracles.hold(f"anomaly join {algo}", runs,
+                     lambda f: f(*args, x0=x0, device="cuda"))
         stalls[algo] = detect_stalls(runs["mega"].telemetry,
                                      tx=runs["mega"].tx, k=3)
     check(bool(stalls["bprr"]) and all(
@@ -2321,12 +2424,14 @@ def obs_fig_provenance(check, launches, trace):
     total = events + quiet
     cut = FaultSchedule.partition(mesh, total, 1, total - 2,
                                   [0] * (n // 2) + [1] * (n - n // 2))
+    args = ("state", lat, mesh, op, 2, total - 2)
     runs = obs_engines(
         check, launches, "anomaly partition state", "state", total,
-        lambda e, d: simulate("state", lat, mesh, op, 2, total - 2,
-                              faults=cut, engine=e,
+        lambda e, d: simulate(*args, faults=cut, engine=e,
                               telemetry=TelemetrySpec(), device=d),
         cpu=True)
+    oracles.hold("anomaly partition state", runs,
+                 lambda f: f(*args, faults=cut, device="cuda"))
     evs = detect_stalls(runs["mega"].telemetry, tx=runs["mega"].tx, k=3)
     check(bool(evs) and all(ev.cause == FAULT_STALL for ev in evs),
           f"anomaly partition state: {evs}")
@@ -2336,15 +2441,18 @@ def obs_fig_provenance(check, launches, trace):
             "stalls": {k: [vars(ev) for ev in v] for k, v in stalls.items()}}
 
 
-def obs_scale(check, launches):
+def obs_scale(check, launches, oracles):
     """(c) GMap 4,194,304 keys, K = 10%, mesh15d4, 12 + 8 rounds, bprr and
     classic, with ``telemetry=`` and ``provenance=`` on mega, fused and
     reference: tx / mem / cpu and the final states equal the run without
-    observability; every channel and matrix equal across the engines;
-    recv / novel / buf / div_gap and waste_bp / waste_cp / covered equal
-    27,962 × the GCounter(15) run's, stale_rounds and ack_lag equal. mega
-    timed off, with telemetry and with both (median, min, max of 5 runs
-    after a warm-up); peak memory."""
+    observability; every channel and matrix equal across the engines and
+    to ``oracle_channels`` and ``oracle_provenance`` on the card (the
+    [15, 4,194,304] cov / birth / src / hop and the [15, 4, 4,194,304]
+    edge_first included); recv / novel / buf / div_gap and waste_bp /
+    waste_cp / covered equal 27,962 × the GCounter(15) run's,
+    stale_rounds and ack_lag equal. mega timed off, with telemetry and
+    with both (median, min, max of 5 runs after a warm-up); peak
+    memory."""
     import numpy as np
     import torch
 
@@ -2406,6 +2514,19 @@ def obs_scale(check, launches):
             check(same_obs(both, r), f"obs gmap {algo}: {engine} differs "
                                      f"from mega")
             del r
+        secs = oracles.hold(f"obs gmap{SCALE_KEYS} {algo}", {"mega": both},
+                            lambda f: f(algo, lat, topo, op, active, quiet,
+                                        device="cuda"), prov=True)
+        print(f"obs gmap{SCALE_KEYS} {algo} oracles: channels "
+              f"{secs[0] * 1e3 / rounds:.3f} ms/round, provenance "
+              f"{secs[1] * 1e3 / rounds:.3f} ms/round (one run each)",
+              flush=True)
+        rows.append({"workload": f"gmap{SCALE_KEYS}_k10_oracles",
+                     "topo": topo.name, "algo": algo, "engine": None,
+                     "channels_ms_per_round": secs[0] * 1e3 / rounds,
+                     "provenance_ms_per_round": secs[1] * 1e3 / rounds,
+                     "runs": 1})
+        torch.cuda.empty_cache()
         t, p = both.telemetry, both.provenance
         for f in ("recv_elems", "novel_elems", "buf_elems", "div_gap"):
             check(np.array_equal(getattr(t, f),
@@ -2669,27 +2790,33 @@ def obs_phase(check, launches, log):
     from repro_torch.obs import TraceLog
 
     trace = TraceLog()
-    part_s, out = {}, {}
+    oracles = Oracles(check)
+    part_s, oracle_s, out = {}, {}, {}
 
     def part(name, fn, *args):
-        t0 = time.perf_counter()
+        t0, o0 = time.perf_counter(), oracles.seconds
         with trace.span(name):
             r = fn(*args)
         part_s[name] = time.perf_counter() - t0
-        print(f"  obs part {name}: {part_s[name]:.1f} s", flush=True)
+        oracle_s[name] = oracles.seconds - o0
+        print(f"  obs part {name}: {part_s[name]:.1f} s (oracles "
+              f"{oracle_s[name]:.1f} s)", flush=True)
         return r
 
     out["fig_telemetry"] = part("a_fig_telemetry", obs_fig_telemetry, check,
-                                launches, trace)
+                                launches, trace, oracles)
     out["fig_provenance"] = part("b_fig_provenance", obs_fig_provenance,
-                                 check, launches, trace)
-    rows, bprr_final = part("c_scale", obs_scale, check, launches)
+                                 check, launches, trace, oracles)
+    rows, bprr_final = part("c_scale", obs_scale, check, launches, oracles)
     out["scuttlebutt"] = part("d_scuttlebutt", obs_scuttlebutt, check,
                               bprr_final)
     del bprr_final
     out["batched"] = part("e_batched", obs_batched, check, launches)
     check(len(trace.events) > 128, f"obs trace: {len(trace.events)} events")
-    out.update(scale=rows, part_s=part_s, trace_events=len(trace.events))
+    check(oracles.calls == 55, f"obs oracles: {oracles.calls} calls, "
+                                 f"expected 55")
+    out.update(scale=rows, part_s=part_s, oracle_s=oracle_s,
+               oracle_calls=oracles.calls, trace_events=len(trace.events))
     log["obs"] = out
     return trace
 
@@ -4740,14 +4867,16 @@ def main() -> int:
                                    f"batched main path")
 
     # 7. the lex-pair main path (LWWMap, the merge entry points, the
-    # quickstart), with the counters zeroed around it: the simulations
-    # launch nothing, the merges one join, one delta_extract and two
-    # lex_join_delta, the quickstart one delta_extract
+    # quickstart) and the Retwis example, with the counters zeroed around
+    # it: the simulations launch nothing, the merges one join, one
+    # delta_extract and two lex_join_delta, the quickstart one
+    # delta_extract, the Retwis example nothing
     kernels.reset_launches()
     expect3 = Launches(check)
     timed("lww", lww_phase, check, expect3, log)
     timed("lww_small", lww_small_phase, check, expect3, log)
     timed("quickstart", quickstart_phase, check, log)
+    timed("retwis_app", retwis_app_phase, check, log)
     launches3 = kernels.launch_counts()
     want3 = dict(expect3.total, join=1, delta_extract=2, lex_join_delta=2)
     check(launches3 == want3, f"lex-pair main-path launches {launches3}, "

@@ -10,8 +10,12 @@ alike, and so do ``simulate_sweep``, ``simulate_store``, the gossip runtime
 (``generate``, ``init_params``, ``init_cache``, ``python -m
 repro_torch.launch.serve``) and its training (``launch.train.run``,
 ``train_100m.main``, ``data.batch_for_step``, ``python -m
-repro_torch.train_100m``) and the model meshes (``make_mesh``,
-``make_production_mesh``)."""
+repro_torch.train_100m``), the model meshes (``make_mesh``,
+``make_production_mesh``), the observability oracles
+(``oracle_channels``, ``oracle_provenance``) and the Retwis example
+(``retwis_app.run``, ``python -m repro_torch.retwis_app``). The oracles
+import no kernel, engine or algorithm module: they share no code with
+what they check."""
 
 import ast
 import os
@@ -113,7 +117,8 @@ def test_entry_points_default_to_the_card():
         "    except RuntimeError as e:\n"
         "        print('RAISED', e)\n"
         "    run(engine='mega', device='cpu')\n"
-        "from repro_torch import elastic_churn\n"
+        "from repro_torch import elastic_churn, retwis_app\n"
+        "from repro_torch.obs import oracle\n"
         "from repro_torch.checkpoint import CheckpointRegistry\n"
         "from repro_torch.data import ProgressCounter, ShardLedger\n"
         "from repro_torch.runtime import GossipNode, LocalTransport\n"
@@ -121,7 +126,14 @@ def test_entry_points_default_to_the_card():
         "             lambda **k: CheckpointRegistry(8, **k),\n"
         "             lambda **k: ShardLedger(8, **k),\n"
         "             lambda **k: ProgressCounter(3, 0, **k),\n"
-        "             lambda **k: elastic_churn.run(verbose=False, **k)):\n"
+        "             lambda **k: elastic_churn.run(verbose=False, **k),\n"
+        "             lambda **k: retwis_app.run(**k),\n"
+        "             lambda **k: oracle.oracle_channels(\n"
+        "                 'bprr', g, topology.ring(3), workloads.gcounter_op(3),\n"
+        "                 2, **k),\n"
+        "             lambda **k: oracle.oracle_provenance(\n"
+        "                 'bprr', g, topology.ring(3), workloads.gcounter_op(3),\n"
+        "                 2, **k)):\n"
         "    try:\n"
         "        make()\n"
         "    except RuntimeError as e:\n"
@@ -134,7 +146,7 @@ def test_entry_points_default_to_the_card():
         "      sorted(kernels.KERNELS))\n")
     out = run_python(code, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED no CUDA device") == 10, out.stdout
+    assert out.stdout.count("RAISED no CUDA device") == 13, out.stdout
     # the CPU runs and calls took the plain versions: no kernel was launched
     assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
         "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \
@@ -244,3 +256,45 @@ def test_model_meshes_default_to_the_card(tmp_path):
     assert "RAISED" in lines[0] and "no card" in lines[0], out.stdout
     assert "RAISED" in lines[1] and "256" in lines[1], out.stdout
     assert lines[2] == "CPU cpu ('data', 'model')", out.stdout
+
+
+def test_retwis_app_cli_defaults_to_the_card():
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.retwis_app"], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    assert cli.returncode != 0 and "no CUDA device" in cli.stderr
+    assert cli.stdout == ""
+
+
+def test_oracle_imports_no_engine_code():
+    """``obs/oracle.py`` imports nothing of ``repro_torch.kernels``,
+    ``sync.engine`` or ``sync.algorithms``, and none of the channel code
+    of ``obs.telemetry`` / ``obs.provenance`` it is held against."""
+    path = REPO / "src" / "repro_torch" / "obs" / "oracle.py"
+    banned = ("repro_torch.kernels", "repro_torch.sync.engine",
+              "repro_torch.sync.algorithms")
+    channel_code = {"round_channels", "cluster_gap", "_cluster_join",
+                    "round_update", "_unpack_bits", "_elem_mask",
+                    "_novel_elem_mask"}
+    seen = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods = [(a.name, []) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [(node.module, [a.name for a in node.names])]
+        else:
+            continue
+        for mod, names in mods:
+            seen.append(mod)
+            full = [mod] + [f"{mod}.{n}" for n in names]
+            assert not any(f == b or f.startswith(b + ".")
+                           for f in full for b in banned), (mod, names)
+            if mod in ("repro_torch.obs.telemetry",
+                       "repro_torch.obs.provenance"):
+                assert not channel_code & set(names), (mod, names)
+            if mod in ("repro_torch.obs", "repro_torch.sync"):
+                assert not {"telemetry", "provenance", "engine",
+                            "algorithms"} & set(names), (mod, names)
+    assert "repro_torch.sync.digest" in seen
