@@ -30,10 +30,16 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    call where one exists (torch.maximum, torch.bitwise_or; join's ratio to
    torch.maximum printed) and their byte bounds; the batch shapes against
    the plain versions (``round_recv`` over 70,001 rows of short and long
-   rows, ``round_step`` over 65,537 configs at U = 32 and at U = 64 on
-   mesh16 and mesh50, the five path kernels on [B, N, U] rows) and
-   ``round_step`` / ``round_recv`` timed at the store's shapes (30,000 ×
-   mesh50 × 64 slots, 1,048,576 × mesh16 × 32) beside their bounds;
+   rows, ``round_step`` over 65,537 configs at U = 32 (one launch of the
+   short-row kernel) and U = 160 (chunks of the long-row one), at U = 64 on
+   mesh16 and mesh50, short rows about the 32-vector threshold (U = 1-128,
+   N = 3-64, every flavour, bool rows, words, a base off 16 bytes) and
+   with the grid capped at 3 blocks, the five path kernels on [B, N, U]
+   rows) and ``round_step`` (the short-row kernel under its default plan,
+   which must launch once, beside the long-row kernel, equal), ``round_recv``
+   and ``buffer_fold`` timed at the store's shapes (30,000 × mesh50 × 64
+   slots, bprr and classic; 1,048,576 × mesh16 × 32, bprr) beside their
+   bounds;
 4. paper size, each run on all three engines (bit-identical, each kernel
    engine's launches equal to its rounds):
    - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
@@ -175,8 +181,9 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    autotune cache pointed at an empty file of the smoke's own from the
    start (every earlier phase runs the default plans): (a) every plan of
    ``round_step.plans`` at the scale phase's GMap 4,194,304 bprr round
-   (mesh15d4, K = P + 1, per-origin) and at the Retwis store's [30,000, 50,
-   64] bprr round against the plain version exactly; ``ops.
+   (mesh15d4, K = P + 1, per-origin) and at the store's [30,000, 50, 64]
+   and [1,048,576, 16, 32] bprr rounds (the short-row kernel's plans)
+   against the plain version exactly; ``ops.
    sync_round_block`` tuning into a fresh file (each candidate's ms by
    CUDA events, the winner beside the default plan and the byte bound),
    then resolving from it (source "cache"); a mega GMap 4M bprr run (12 +
@@ -608,11 +615,13 @@ def batch_kernel_grid(check, dev, log):
     """The store's and the sweep's shapes against the plain versions on the
     card: ``round_recv`` over more than 65,535 rows (short rows of 32 / 64
     int32, 32 bools, 3 words; a long row of 200 int32), ``round_step`` over
-    more than 65,535 configs (mesh16, U = 32) and at U = 64 (mesh16; mesh50,
-    whose plan falls back to direct loads), ``round_recv`` with its grid
-    capped at 3 blocks (every grid-stride loop walks), and the five path
-    kernels on a batch's [B, N, U] operands as rows. Returns the largest
-    error per kernel."""
+    more than 65,535 configs (mesh16, U = 32: short rows, one launch; U =
+    160: long rows, chunks) and at U = 64 (mesh16; mesh50), short rows
+    about the 32-vector threshold and a warp (every flavour, bool rows,
+    words, a base off 16 bytes) at B = g + 1, both kernels' grids capped
+    at 3 blocks (every walk loops), and the five path kernels on a batch's
+    [B, N, U] operands as rows; each ``round_step`` call's launches by the
+    wrapper's rule. Returns the largest error per kernel."""
     import torch
 
     from repro_torch.kernels import ops
@@ -658,35 +667,81 @@ def batch_kernel_grid(check, dev, log):
     finally:
         kr.MAX_BLOCKS = cap
     del d, x, act, got, want
-    for n, u, nb, algo in ((16, 32, 65_537, "bprr"), (16, 32, 65_537,
-                                                      "classic"),
-                           (16, 64, 3_001, "bprr"), (50, 64, 1_000, "bprr")):
-        topo = topology.partial_mesh(n, 4).on(dev)
+
+    def step_case(n, u, nb, algo, dtype=torch.int32, off=0):
+        """One ``round_step`` call on random operands against the plain
+        version; its launches against the wrapper's rule."""
+        topo = topology.partial_mesh(n, 4 if n > 4 else 2).on(dev)
         p = topo.max_degree
-        k = p + 1 if algo == "bprr" else 1
-        args = (rand_state(g, torch.int32, (nb, n, u), dev),
-                rand_state(g, torch.int32, (nb, n, u), dev),
-                rand_state(g, torch.int32, (k, nb, n, u), dev),
+        k = {"state": 0, "classic": 1, "rr": 1}.get(algo, p + 1)
+        kind = "bitor" if dtype == "words" else "max"
+        args = (offset_view(rand_state(g, dtype, (nb, n, u), dev), off),
+                rand_state(g, dtype, (nb, n, u), dev),
+                rand_state(g, dtype, (k, nb, n, u), dev) if k else None,
                 (torch.randint(0, 2, (nb, n, p), generator=g, device=dev,
                                dtype=torch.int32) * topo.mask).to(torch.int32),
                 torch.randint(0, 2, (nb, n), generator=g, device=dev,
-                              dtype=torch.int32), topo.nbrs, topo.rev)
-        kw = dict(kind="max", per_origin=algo == "bprr",
-                  extracts=algo == "bprr", emit_inbox=algo != "bprr")
+                              dtype=torch.int32) if k else None,
+                topo.nbrs, topo.rev)
+        kw = dict(kind=kind, per_origin=algo in ("bp", "bprr"),
+                  extracts=algo in ("rr", "bprr"),
+                  emit_inbox=algo not in ("rr", "bprr"))
         before = ks.launches
         got = ops.round_step(*args, **kw)
-        chunks = ks.launches - before
-        e = max_abs_err(got, ks.plain(*args, **kw))
+        launched = ks.launches - before
+        views = [a.view(torch.uint8) if a is not None and a.dtype ==
+                 torch.bool else a for a in args]
+        want = ks.plain(*views, **kw)
+        want = tuple(w.view(torch.bool) if w is not None and w.dtype ==
+                     torch.uint8 else w for w in want)
+        e = max_abs_err(got, want)
         errs["round_step"] = max(errs["round_step"], e)
         pl, blocks = ks.last_launch
-        check(e == 0 and chunks == -(-nb // ks.MAX_CONFIGS),
-              f"round_step [{nb}, {n}, {u}] {algo}: err {e}, {chunks} "
-              f"launches")
-        print(f"round_step [{nb}, {n}, {u}] {algo}: {chunks} launch(es), "
-              f"{'bulk copies' if pl.bulk else 'direct loads'} of "
-              f"{pl.vec_bytes or 'one element'} B a lane, {blocks} block(s) "
-              f"a config", flush=True)
-        del args, got
+        check(e == 0 and launched == ks.launches_for(nb, pl),
+              f"round_step [{nb}, {n}, {u}] {dtype} {algo} offset {off}: "
+              f"err {e}, {launched} launches under {pl}")
+        return pl, blocks, launched
+
+    for n, u, nb, algo in ((16, 32, 65_537, "bprr"), (16, 32, 65_537,
+                                                      "classic"),
+                           (16, 160, 65_537, "bprr"),
+                           (16, 64, 3_001, "bprr"), (50, 64, 1_000, "bprr")):
+        pl, blocks, launched = step_case(n, u, nb, algo)
+        check(pl.short == (u != 160), f"round_step [{nb}, {n}, {u}]: took "
+                                      f"{pl}")
+        print(f"round_step [{nb}, {n}, {u}] {algo}: {launched} launch(es), "
+              + (f"short rows: {pl.lanes} lanes a row, {pl.configs} "
+                 f"configs a block, {blocks} blocks" if pl.short else
+                 f"{'bulk copies' if pl.bulk else 'direct loads'} of "
+                 f"{pl.vec_bytes or 'one element'} B a lane, {blocks} "
+                 f"block(s) a config"), flush=True)
+    # short rows about the 32-vector threshold and a warp, every flavour,
+    # bool rows, words, a base off 16 bytes; B = g + 1 (a partial group)
+    for n, u, dtype, algo, off in (
+            (3, 1, torch.int32, "bprr", 0), (15, 7, torch.int32, "rr", 0),
+            (17, 31, torch.int32, "bp", 1), (16, 33, torch.int32, "bprr", 0),
+            (50, 100, torch.int32, "classic", 0),
+            (64, 32, torch.int32, "state", 0), (17, 128, torch.bool, "bprr", 0),
+            (15, 33, torch.bool, "classic", 1), (16, 64, "words", "rr", 0),
+            (50, 7, "words", "bp", 0)):
+        elem = 1 if dtype == torch.bool else 4
+        topo_p = 4 if n > 4 else 2
+        k = {"state": 0, "classic": 1, "rr": 1}.get(algo, topo_p + 1)
+        pl = ks.plan(n, topo_p, k, algo in ("bp", "bprr"), elem, u, not off)
+        step_case(n, u, pl.configs + 1, algo, dtype, off)
+        check(ks.last_launch[0] == pl, f"round_step [{pl.configs + 1}, {n}, "
+                                       f"{u}] launched {ks.last_launch[0]}, "
+                                       f"not {pl}")
+    cap = ks.MAX_BLOCKS
+    try:
+        ks.MAX_BLOCKS = 3                   # every block walks many groups
+        for n, u in ((16, 32), (50, 64)):
+            pl, blocks, _ = step_case(n, u, 301, "bprr")
+            check(pl.short and blocks == 3, f"round_step [301, {n}, {u}] "
+                                            f"over 3 blocks took {pl}, "
+                                            f"{blocks} blocks")
+    finally:
+        ks.MAX_BLOCKS = cap
     b, n, u, p, be = 4096, 16, 64, 4, 8
     x = rand_state(g, torch.int32, (b, n, u), dev)
     buf = rand_state(g, torch.int32, (p + 1, b, n, u), dev)
@@ -710,12 +765,34 @@ def batch_kernel_grid(check, dev, log):
     return errs
 
 
+# the store shapes of phase 3's timings: (tag, configs, nodes, slots,
+# flavours); the paper setting's store runs classic and bprr
+STORE_SHAPES = (("paper 30,000 x mesh50 x 64", 30_000, 50, 64,
+                 ("bprr", "classic")),
+                ("1,048,576 x mesh16 x 32", 1 << 20, 16, 32, ("bprr",)))
+
+
+def step_bound(b, n, u, p, k, inbox):
+    """Bound of one ``round_step`` call of ``b`` configs: δ, x and the K
+    slots read, x' and the K slots (and the P inbox planes) written, plus
+    active, delivered and the 3P+2 counts; its integer operations."""
+    rows = b * n
+    nbytes = (2 * k + 3 + (p if inbox else 0)) * rows * u * 4 \
+        + rows * 4 * (4 * p + 3)
+    return bound(nbytes, (2 + 3 * k + 6 * p + 1) * rows * u)
+
+
 def store_kernel_timings(check, dev, log):
-    """``round_step`` and ``round_recv`` at the store's shapes, beside their
-    byte bounds: the paper setting (30,000 objects of mesh50 d4, 64 int32
-    slots, bprr) and a million objects (mesh16 d4, 32 slots, bprr), each
-    as the ``mega`` round's one launch and the ``fused`` round's receive
-    (P = 4 extractions out). Returns ``{kernel: [row, ...]}``."""
+    """``round_step``, ``round_recv`` and ``buffer_fold`` at the store's
+    shapes, beside their byte bounds: the paper setting (30,000 objects of
+    mesh50 d4, 64 int32 slots, bprr and classic) and a million objects
+    (mesh16 d4, 32 slots, bprr). ``round_step`` as the ``mega`` round's
+    launch under the default plan, which must be the short-row kernel,
+    launched once; beside it the long-row kernel under its own default
+    plan (the one-config-a-block design every shape took before the
+    short-row kernel), equal bit for bit; ``round_recv`` as the ``fused``
+    round's receive (P = 4 extractions out) and ``buffer_fold`` as its
+    bprr fold of the [K, B·N, U] buffer. Returns ``{kernel: [row, ...]}``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -724,31 +801,64 @@ def store_kernel_timings(check, dev, log):
     from repro_torch.sync import topology
 
     g = torch.Generator(device=dev).manual_seed(9)
-    out = {"round_step": [], "round_recv": []}
-    for tag, b, n, u in (("paper 30,000 x mesh50 x 64", 30_000, 50, 64),
-                         ("1,048,576 x mesh16 x 32", 1 << 20, 16, 32)):
+    out = {"round_step": [], "round_recv": [], "buffer_fold": []}
+    for tag, b, n, u, flavours in STORE_SHAPES:
         topo = topology.partial_mesh(n, 4).on(dev)
-        p, k = topo.max_degree, topo.max_degree + 1
+        p = topo.max_degree
         plane = b * n * u * 4
-        args = (rand_state(g, torch.int32, (b, n, u), dev),
-                rand_state(g, torch.int32, (b, n, u), dev),
-                rand_state(g, torch.int32, (k, b, n, u), dev),
-                topo.mask.to(torch.int32).expand(b, n, p).contiguous(),
-                torch.ones((b, n), dtype=torch.int32, device=dev),
-                topo.nbrs, topo.rev)
-        kw = dict(kind="max", per_origin=True, extracts=True,
-                  emit_inbox=False)
-        ms = time_ms(lambda: ops.round_step(*args, **kw), reps=5)
-        pl, blocks = ks.last_launch
-        b_ms, b_by = bound((2 * k + 3) * plane,
-                           (2 + 3 * k + 6 * p + 1) * b * n * u)
-        out["round_step"].append({"shape": f"[{b}, {n}, {u}] int32 K={k}",
-                                  "ms": ms, "bound_ms": b_ms,
-                                  "bound_by": b_by,
-                                  "launches_per_call": -(-b // 65535),
-                                  "plan": dict(pl._asdict(), blocks=blocks)})
-        del args
-        torch.cuda.empty_cache()
+        for flavour in flavours:
+            k = p + 1 if flavour == "bprr" else 1
+            bprr = flavour == "bprr"
+            args = (rand_state(g, torch.int32, (b, n, u), dev),
+                    rand_state(g, torch.int32, (b, n, u), dev),
+                    rand_state(g, torch.int32, (k, b, n, u), dev),
+                    topo.mask.to(torch.int32).expand(b, n, p).contiguous(),
+                    torch.ones((b, n), dtype=torch.int32, device=dev),
+                    topo.nbrs, topo.rev)
+            kw = dict(kind="max", per_origin=bprr, extracts=bprr,
+                      emit_inbox=not bprr)
+            before = ks.launches
+            got = ops.round_step(*args, **kw)
+            launched = ks.launches - before
+            pl, blocks = ks.last_launch
+            old = ks.long_plans(n, p, k, bprr, 4, u, True)[0]
+            same = same_outputs(got, ks._launch(*args, "max", bprr, bprr,
+                                                not bprr, pl=old))
+            del got
+            check(pl.short and launched == 1 and same,
+                  f"store shapes {tag} {flavour}: plan {pl}, {launched} "
+                  f"launches, equal to the long-row kernel: {same}")
+            ms = time_ms(lambda: ops.round_step(*args, **kw), reps=5)
+            old_ms = time_ms(lambda: ks._launch(
+                *args, "max", bprr, bprr, not bprr, pl=old), reps=5)
+            b_ms, b_by = step_bound(b, n, u, p, k, not bprr)
+            out["round_step"].append({
+                "shape": f"[{b}, {n}, {u}] int32 {flavour} K={k}", "ms": ms,
+                "bound_ms": b_ms, "bound_by": b_by, "launches_per_call":
+                launched, "plan": dict(pl._asdict(), blocks=blocks),
+                "long_row_kernel_ms": old_ms,
+                "long_row_plan": old._asdict()})
+            print(f"store shapes {tag} {flavour}: round_step {ms:.3f} ms "
+                  f"(bound {b_ms:.3f} by {b_by}, {ms and b_ms / ms:.1%}), "
+                  f"{launched} launch, short rows: {pl.lanes} lanes a row, "
+                  f"g = {pl.configs} configs a block, {pl.threads} threads, "
+                  f"{'a bulk-copied stage' if pl.bulk else 'direct loads'}, "
+                  f"{pl.smem} B shared, {blocks} blocks; the long-row "
+                  f"kernel {old_ms:.3f} ms (tile {old.tile}, vec "
+                  f"{old.vec_bytes}, stages {old.stages})", flush=True)
+            if bprr:
+                buf = args[2].view(k, b * n, u)
+                fb_ms = time_ms(lambda: ops.buffer_fold(buf, kind="max"),
+                                reps=5)
+                f_ms, f_by = bound((2 * k - 1) * plane, 2 * k * b * n * u)
+                out["buffer_fold"].append({
+                    "shape": f"[{k}, {b * n}, {u}] int32", "ms": fb_ms,
+                    "bound_ms": f_ms, "bound_by": f_by})
+                print(f"store shapes {tag}: buffer_fold {fb_ms:.3f} ms "
+                      f"(bound {f_ms:.3f} by {f_by})", flush=True)
+                del buf
+            del args
+            torch.cuda.empty_cache()
         d = rand_state(g, torch.int32, (p, b * n, u), dev)
         x = rand_state(g, torch.int32, (b * n, u), dev)
         act = topo.mask.to(torch.int32).repeat(b, 1)
@@ -761,10 +871,8 @@ def store_kernel_timings(check, dev, log):
                                   "short_rows": kr.short_rows(u, 4, True)})
         del d, x, act
         torch.cuda.empty_cache()
-        print(f"store shapes {tag}: round_step {ms:.3f} ms (bound "
-              f"{b_ms:.3f}, {-(-b // 65535)} launch(es), "
-              f"{'bulk' if pl.bulk else 'direct'} {pl.vec_bytes} B lanes); "
-              f"round_recv {ms_r:.3f} ms (bound {rb_ms:.3f})", flush=True)
+        print(f"store shapes {tag}: round_recv {ms_r:.3f} ms (bound "
+              f"{rb_ms:.3f})", flush=True)
     log["store_kernel_timings"] = out
     return out
 
@@ -942,19 +1050,33 @@ def same_run(a, b) -> bool:
         or np.array_equal(a.uniform, b.uniform))
 
 
-def expected_launches(engine, algo, rounds, configs=1):
-    """Launches of one run: ``mega`` one ``round_step`` per δ-family round
-    (one per 65,535 configs of a batch: the kernel's chunks);
+def expected_launches(engine, algo, rounds, configs=1, row=None):
+    """Launches of one run: ``mega`` one ``round_step`` call per δ-family
+    round, launching as often as the wrapper's own rule gives for its
+    default plan (``round_step.launches_for``: once on the short-row
+    kernel, once per 65,535 configs on the long-row one) at ``configs``
+    configs of ``row`` = (nodes, degree, columns) int32 rows (None: at
+    most 65,535 configs, one launch either way);
     ``fused`` one ``round_recv`` (+ ``buffer_fold`` for bp/bprr); the resync
     modes one ``round_recv`` per round on either kernel engine, and
     ``digest_driven`` one ``digest_blocks`` + one ``masked_extract``;
     ``reference`` none."""
+    from repro_torch.kernels import round_step as ks
+
     kern = engine in ("fused", "mega")
     resync = algo in ("state_driven", "digest_driven")
     digest = kern and algo == "digest_driven"
-    chunks = -(-configs // 65535)
-    return {"round_step": rounds * chunks if engine == "mega" and not resync
-            else 0,
+    if row is None:
+        if configs > ks.MAX_CONFIGS:
+            raise ValueError(f"{configs} configs: name their row")
+        per_round = 1
+    else:
+        n, p, u = row
+        k = {"state": 0, "classic": 1, "rr": 1}.get(algo, p + 1)
+        per_round = ks.launches_for(configs, ks.plan(
+            n, p, k, algo in ("bp", "bprr"), 4, u, True))
+    return {"round_step": rounds * per_round
+            if engine == "mega" and not resync else 0,
             "round_recv": rounds if kern and (resync or engine == "fused")
             else 0,
             "buffer_fold": rounds if engine == "fused"
@@ -973,17 +1095,18 @@ class Launches:
         self.check = check
         self.total = {name: 0 for name in SOURCES}
 
-    def run(self, tag, engine, algo, rounds, fn, configs=1, blocks=1):
+    def run(self, tag, engine, algo, rounds, fn, configs=1, blocks=1,
+            row=None):
         """``fn()``, whose run has ``blocks`` device blocks of ``configs``
         configs each (a sharded store: each block's rounds launch on
-        their own)."""
+        their own) of ``row`` rows (:func:`expected_launches`)."""
         from repro_torch import kernels
 
         before = kernels.launch_counts()
         r = fn()
         after = kernels.launch_counts()
         used = {k: after[k] - before[k] for k in after}
-        want = expected_launches(engine, algo, rounds * blocks, configs)
+        want = expected_launches(engine, algo, rounds * blocks, configs, row)
         self.check(used == want, f"{tag}: launches {used}, expected {want}")
         for k, v in want.items():
             self.total[k] += v
@@ -1217,7 +1340,7 @@ def fault_phase(check, launches, log, singles):
 
 
 def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
-              runs=SCALE_RUNS, blocks=1):
+              runs=SCALE_RUNS, blocks=1, row=None):
     """``runs`` runs, each timed on the host clock around a synchronised
     device, after a one-round run of the same configuration (which builds
     the op's tables and grows the allocator's pool); every run's launches
@@ -1226,7 +1349,7 @@ def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
     import torch
 
     launches.run(f"{tag} warm-up", engine, algo, 1, lambda: simulate_fn(1, 0),
-                 configs, blocks)
+                 configs, blocks, row)
     gc.collect()                 # what earlier phases left in cycles goes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1235,7 +1358,7 @@ def scale_run(launches, tag, engine, algo, rounds, simulate_fn, configs=1,
         r = None                           # one result alive at a time
         t0 = time.perf_counter()
         r = launches.run(tag, engine, algo, rounds, simulate_fn, configs,
-                         blocks)
+                         blocks, row)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / rounds)
     return (r, (statistics.median(times), min(times), max(times)),
@@ -1767,6 +1890,7 @@ def million_phase(check, launches, log):
 
     nodes, objects, slots, rounds, ops, chunk = STORE_1M
     topo = topology.partial_mesh(nodes, 4)
+    row = (nodes, topo.max_degree, slots)     # the launch rule's rows
     lat, spec, counts = retwis_store(1.0, nodes, objects, slots, rounds, ops)
     ckdir = REPO / "build" / "store_ckpt"
     shutil.rmtree(ckdir, ignore_errors=True)
@@ -1803,7 +1927,7 @@ def million_phase(check, launches, log):
         r, ms, peak = scale_run(
             launches, tag, engine, "bprr", rounds,
             lambda a=rounds, q=0: store(engine, a, object_metrics=False),
-            objects, runs=MILLION_RUNS)
+            objects, runs=MILLION_RUNS, row=row)
         rows.append(scale_row("retwis_mesh16_1M_s32", topo.name, "bprr",
                               engine, ms, b_ms, peak, r, runs=MILLION_RUNS))
         print_scale(tag, ms, b_ms, peak, r, runs=MILLION_RUNS)
@@ -1818,7 +1942,7 @@ def million_phase(check, launches, log):
     full = launches.run("store 1M bprr mega checkpointed", "mega", "bprr",
                         rounds, lambda: store("mega", object_metrics=False,
                                               checkpoint=KeepTen(ckdir)),
-                        objects)
+                        objects, row=row)
     save_s = time.perf_counter() - t
     check(same_store(base, full), "store 1M: the checkpointed run differs")
     del full
@@ -1835,7 +1959,7 @@ def million_phase(check, launches, log):
                        rounds - 10, lambda: resume_store(
                            "bprr", lat, topo, spec, rounds, engine="mega",
                            checkpoint=ReadOnly(ckdir), step=10,
-                           object_metrics=False), objects)
+                           object_metrics=False), objects, row=row)
     resume_s = time.perf_counter() - t
     check(same_store(base, res), "store 1M: resume from round 10 differs "
                                  "from the uninterrupted run")
@@ -1845,7 +1969,7 @@ def million_phase(check, launches, log):
 
     per = launches.run("store 1M bprr mega object_metrics", "mega", "bprr",
                        rounds, lambda: store("mega", object_metrics=True),
-                       objects)
+                       objects, row=row)
     check(same_store(base, per), "store 1M: the reduced aggregates differ "
                                  "from the per-object sums")
     for o in sampled_objects(objects):
@@ -4269,9 +4393,12 @@ def train_phase(check, log, smi, dev):
 # its own beside it.
 TUNE_DIR = REPO / "build" / "chip_smoke_autotune"
 # (a) round_step's plans at the scale phase's GMap 4M bprr round (mesh15d4,
-# K = P + 1, per-origin) and at the Retwis store's shape (mesh50 d4)
+# K = P + 1, per-origin) and at the store's shapes: the Retwis paper
+# setting (mesh50 d4) and a million objects (mesh16 d4; tuned only: no
+# mega run)
 TUNE_SHAPES = (("GMap 4,194,304 bprr mesh15d4", 1, 15, SCALE_KEYS),
-               ("Retwis [30,000, 50, 64] bprr", 30_000, 50, 64))
+               ("Retwis [30,000, 50, 64] bprr", 30_000, 50, 64),
+               ("Retwis [1,048,576, 16, 32] bprr", 1 << 20, 16, 32))
 # (b) qwen3-0.6b whole on a one-rank NCCL group's (1, 1) mesh, float32
 SHARDED_TRAIN = ("qwen3-0.6b", 2, 512)
 SHARDED_PROMPT, SHARDED_STEPS = 32, 4
@@ -4343,14 +4470,24 @@ def same_outputs(got, want) -> bool:
         for a, c in zip(got, want))
 
 
+def plan_name(pl) -> str:
+    """A ``round_step`` plan in a few words."""
+    if pl.short:
+        return (f"short rows {pl.lanes} lanes g {pl.configs} "
+                f"{'staged' if pl.bulk else 'direct'}")
+    return f"tile {pl.tile} vec {pl.vec_bytes} stages {pl.stages}"
+
+
 def tune_phase(check, log, smi, dev, smoke_cache):
-    """(a) every plan of ``round_step.plans`` at both shapes launched and
-    held to the plain version exactly; ``ops.sync_round_block`` tuning into
-    a fresh file (each candidate's ms by CUDA events), then resolving from
-    it ("cache"); a mega GMap 4M bprr run under the tuned plan against the
-    default plan's, bit for bit. The memo is cleared and the smoke's empty
-    cache restored after; the same for the Retwis paper store's mega run
-    at the store shape's winner. Returns the mega runs' launches.""" 
+    """(a) every plan of ``round_step.plans`` at the three shapes launched
+    and held to the plain version exactly (at the store shapes the
+    short-row kernel's: configs a block, direct or staged loads);
+    ``ops.sync_round_block`` tuning into a fresh file (each candidate's ms
+    by CUDA events), then resolving from it ("cache"); a mega GMap 4M bprr
+    run under the tuned plan against the default plan's, bit for bit. The
+    memo is cleared and the smoke's empty cache restored after; the same
+    for the Retwis paper store's mega run at the store shape's winner.
+    Returns the mega runs' launches."""
     import torch
 
     from repro_torch import kernels
@@ -4409,10 +4546,10 @@ def tune_phase(check, log, smi, dev, smoke_cache):
         out.append(row)
         winners[tag] = (win, path)
         print(f"tune {tag}: " + "; ".join(
-            f"tile {pl.tile} vec {pl.vec_bytes} stages {pl.stages}: "
-            f"{ms[tuple(pl)]:.3f} ms" for pl in cands), flush=True)
-        print(f"tune {tag}: winner tile {win.tile} vec {win.vec_bytes} "
-              f"stages {win.stages} {ms[tuple(win)]:.3f} ms, default "
+            f"{plan_name(pl)}: {ms[tuple(pl)]:.3f} ms" for pl in cands),
+            flush=True)
+        print(f"tune {tag}: winner {plan_name(win)} {ms[tuple(win)]:.3f} "
+              f"ms, default "
               f"{ms[tuple(default)]:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
               f"resolved again from the cache [{smi}]", flush=True)
         del args
@@ -4465,9 +4602,8 @@ def tune_phase(check, log, smi, dev, smoke_cache):
               f"default plan's")
         row = next(r for r in out if r["shape"] == tag)
         row["mega_ms_per_round"] = dict(ms, rounds=rounds)
-        print(f"tune {tag}: mega run ({rounds} rounds) under tile "
-              f"{win.tile} vec {win.vec_bytes} stages {win.stages} equal "
-              f"to the default plan's; ms/round tuned "
+        print(f"tune {tag}: mega run ({rounds} rounds) under "
+              f"{plan_name(win)} equal to the default plan's; ms/round tuned "
               f"{', '.join(f'{t:.3f}' for t in ms['tuned'])}, default "
               f"{', '.join(f'{t:.3f}' for t in ms['default'])} (after a "
               f"warm-up run, in turns) [{smi}]", flush=True)

@@ -6,14 +6,17 @@ process. Run from the root of a checkout, on a machine with an sm_90 card:
     python3 src/repro_torch/kernels/study.py kernels [--baseline DIR]
     python3 src/repro_torch/kernels/study.py rounds [--root CHECKOUT]
 
-``kernels`` times, at the scale shapes of ``chip_smoke.py`` ([1, 15,
-4,194,304] int32 on mesh15d4), ``round_step`` for bprr (K = 5, extracts)
-under the plan :func:`round_step.plan` picks and under every other plan of
-the kernel (lane bytes × ring stages, direct loads), classic (K = 1), and
-``digest_blocks`` at be = 64; with ``--baseline`` also the sources
-``DIR/round_step.cu`` and ``DIR/digest_blocks.cu`` of an earlier design
-with the C interface of the first port (``git show
-<commit>:src/repro_torch/csrc/round_step.cu``), built with the same flags.
+``kernels`` times ``round_step`` under every plan of its ladder
+(:func:`round_step.plans`, the default first): at the scale shapes of
+``chip_smoke.py`` ([1, 15, 4,194,304] int32 on mesh15d4) for bprr (K = 5,
+extracts) and classic (K = 1), and at the keyed store's shapes ([30,000,
+50, 64] on mesh50 d4, bprr and classic; [1,048,576, 16, 32] on mesh16 d4,
+bprr: the short-row kernel's plans), each checked equal to the plain
+version; and ``digest_blocks`` at be = 64. With
+``--baseline DIR`` also ``DIR/round_step.cu``, an earlier design with the
+C interface the long-row kernel keeps (``round_step_launch``; ``git show
+<commit>:src/repro_torch/csrc/round_step.cu``), built with the same flags
+and launched under the long-row kernel's default plan, at every shape.
 
 ``rounds`` times, for the port under ``CHECKOUT/src`` (default this
 checkout, so an earlier commit unpacked by ``git archive`` can be run in
@@ -85,30 +88,29 @@ def equal(got, want) -> bool:
                for g, w in zip(got, want))
 
 
-def baseline_libs(src_dir: Path):
-    """round_step and digest_blocks of the first port's design and C
+def baseline_lib(src_dir: Path):
+    """``round_step`` of an earlier design with the long-row kernel's C
     interface, built from ``src_dir`` with the port's flags into
     build/repro_torch/study/."""
     from repro_torch.kernels import _build as B
+    from repro_torch.kernels import round_step as ks
 
     out = B.BUILD_DIR / "study"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [B.nvcc_path(), *B.NVCC_FLAGS, "-I", str(B.CSRC), "-o",
-         str(out / f"{n}.so"), str(src_dir / f"{n}.cu")])
-        for n in ("round_step", "digest_blocks")}
-    for n, p in procs.items():
-        if p.wait() != 0:
-            raise RuntimeError(f"nvcc failed for the baseline {n}")
-    step = ctypes.CDLL(str(out / "round_step.so"))
-    step.round_step_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 \
-        + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_longlong, ctypes.c_void_p]
-    dig = ctypes.CDLL(str(out / "digest_blocks.so"))
-    dig.digest_blocks_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    return step, dig
+    so = out / "round_step.so"
+    if subprocess.run([B.nvcc_path(), *B.NVCC_FLAGS, "-I", str(B.CSRC),
+                       "-o", str(so), str(src_dir / "round_step.cu")]
+                      ).returncode != 0:
+        raise RuntimeError("nvcc failed for the baseline round_step")
+    step = ctypes.CDLL(str(so))
+    step.round_step_launch.argtypes = ks._SIGNATURE["round_step_launch"]
+    return step
+
+
+# (shape, configs, nodes, columns, flavours) of ``kernels``
+SHAPES = (("gmap", 1, 15, KEYS, ("bprr", "classic")),
+          ("retwis", 30_000, 50, 64, ("bprr", "classic")),
+          ("million", 1 << 20, 16, 32, ("bprr",)))
 
 
 def kernels(baseline: Path | None):
@@ -120,95 +122,80 @@ def kernels(baseline: Path | None):
     from repro_torch.sync import topology
 
     B.build_all()
-    base = baseline_libs(baseline) if baseline else None
+    base = baseline_lib(baseline) if baseline else None
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    topo = topology.partial_mesh(15, 4).on(dev)
-    n, p = 15, 4
 
     def state(*shape):
         return torch.randint(0, 13, shape, generator=g, device=dev,
                              dtype=torch.int32)
 
-    delta, x = state(1, n, KEYS), state(1, n, KEYS)
-    act = topo.mask.to(torch.int32)[None].contiguous()
-    dlv = torch.ones((1, n), dtype=torch.int32, device=dev)
-    for flavor, k, per_origin, extracts in (("bprr", p + 1, True, True),
-                                            ("classic", 1, False, False)):
-        buf = state(k, 1, n, KEYS)
-        args = (delta, x, buf, act, dlv, topo.nbrs, topo.rev)
-        want = ks.plain(*args, per_origin=per_origin, extracts=extracts)
-        chosen = ks.plan(n, p, k, per_origin, 4, KEYS, True)
-        plans = {"chosen": chosen}
-        if flavor == "bprr":
-            s_rows, rows_in = 2 * p * n, (2 + k) * n
-            for vb in ks.VEC_BYTES + (0,):
-                for st in ((3, 2, 0) if vb else (0,)):
-                    row = 32 * (vb or 4)
-                    bars = -(-8 * st // 16) * 16
-                    smem = chosen.table_bytes + bars + (s_rows + st * rows_in) \
-                        * row
-                    if smem <= ks.SMEM_LIMIT:
-                        plans[f"vb{vb}_st{st}"] = chosen._replace(
-                            tile=row // 4, vec_bytes=vb, stages=st,
-                            bar_bytes=bars, smem=smem)
-        for name, pl in plans.items():
-            def run(pl=pl):
-                return ks._launch(*args, "max", per_origin, extracts, False,
-                                  pl=pl)
-            ok = equal(run(), want)
-            emit(kernel="round_step", flavor=flavor, plan=name,
-                 **pl._asdict(), blocks=ks.last_launch[1], equal=ok,
-                 ms=time_ms(run))
-        if base is not None:
-            outs = (torch.empty_like(x), torch.empty_like(buf),
-                    torch.zeros((1, n, 2), dtype=torch.int32, device=dev),
-                    *(torch.zeros((1, n, p), dtype=torch.int32, device=dev)
-                      for _ in range(3)))
-            s = p if per_origin else 1
-            tb = ks.table_bytes(n, p)
+    for shape, b, n, u, flavours in SHAPES:
+        topo = topology.partial_mesh(n, 4).on(dev)
+        p = topo.max_degree
+        delta, x = state(b, n, u), state(b, n, u)
+        act = topo.mask.to(torch.int32).expand(b, n, p).contiguous()
+        dlv = torch.ones((b, n), dtype=torch.int32, device=dev)
+        for flavor in flavours:
+            bprr = flavor == "bprr"
+            k = p + 1 if bprr else 1
+            buf = state(k, b, n, u)
+            args = (delta, x, buf, act, dlv, topo.nbrs, topo.rev)
+            flags = ("max", bprr, bprr, not bprr)
+            want = ks.plain(*args, *flags)
+            cands = ks.plans(n, p, k, bprr, 4, u, True)
+            for i, pl in enumerate(cands):
+                def run(pl=pl):
+                    return ks._launch(*args, *flags, pl=pl)
+                ok = equal(run(), want)
+                emit(kernel="round_step", shape=f"[{b}, {n}, {u}]",
+                     flavor=flavor, plan="default" if i == 0 else
+                     ("short" if pl.short else "long"), **pl._asdict(),
+                     blocks=ks.last_launch[1], equal=ok, ms=time_ms(run))
+            if base is not None:
+                old = ks.long_plans(n, p, k, bprr, 4, u, True)[0]
+                outs = (torch.empty_like(x), torch.empty_like(buf),
+                        torch.empty((p, b, n, u), dtype=torch.int32,
+                                    device=dev) if not bprr else None,
+                        torch.zeros((b, n, 2), dtype=torch.int32,
+                                    device=dev),
+                        *(torch.zeros((b, n, p), dtype=torch.int32,
+                                      device=dev) for _ in range(3)))
 
-            def old(outs=outs, args=args, k=k, per_origin=per_origin,
-                    extracts=extracts, s=s, tb=tb):
-                for o in outs[2:]:
-                    o.zero_()
-                with B.launching(dev) as stream:
-                    err = base[0].round_step_launch(
-                        1, *(B.ptr(a) for a in args), B.ptr(outs[0]),
-                        B.ptr(outs[1]), None, *(B.ptr(o) for o in outs[2:]),
-                        1, n, p, k, int(per_origin), int(extracts), KEYS,
-                        min(n, 32), tb, tb + 4 * 32 * n * (1 + k + s),
-                        stream)
-                if err:
-                    raise RuntimeError(f"baseline round_step: error {err}")
-            old()
-            xo, bo, nodecnt, ssend, cnt, dsz = outs
-            ok = equal((xo, bo, None, nodecnt[..., 0], nodecnt[..., 1],
-                        ssend, cnt, dsz), want)
-            emit(kernel="round_step", flavor=flavor, plan="baseline",
-                 equal=ok, ms=time_ms(old))
-            del outs
-        del buf, want
+                def parent(outs=outs, args=args, k=k, bprr=bprr, old=old):
+                    for o in outs[3:]:
+                        o.zero_()
+                    blocks = ctypes.c_longlong(0)
+                    with B.launching(dev) as stream:
+                        err = base.round_step_launch(
+                            1, *(B.ptr(a) for a in args),
+                            *(B.ptr(o) for o in outs), b, n, p, k, int(bprr),
+                            int(bprr), u, old.vec_bytes, old.reg_tally,
+                            old.stages, old.threads, old.table_bytes,
+                            old.bar_bytes, old.smem, ctypes.byref(blocks),
+                            stream)
+                    if err:
+                        raise RuntimeError(f"baseline round_step: error "
+                                           f"{err}")
+                parent()
+                xo, bo, ib, nodecnt, ssend, cnt, dsz = outs
+                ok = equal((xo, bo, ib, nodecnt[..., 0], nodecnt[..., 1],
+                            ssend, cnt, dsz), want)
+                emit(kernel="round_step", shape=f"[{b}, {n}, {u}]",
+                     flavor=flavor, plan="baseline", **old._asdict(),
+                     equal=ok, ms=time_ms(parent))
+                del outs
+            del buf, want, args
+            torch.cuda.empty_cache()
+        del delta, x, act, dlv
         torch.cuda.empty_cache()
 
     be = 64
-    xd = state(n, KEYS)
+    xd = state(15, KEYS)
     want = kd.plain(xd, be, "max")
     ok = torch.equal(kd.digest_blocks(xd, block_elems=be), want)
     emit(kernel="digest_blocks", plan="chosen", **kd.last_launch._asdict(),
          equal=ok, ms=time_ms(lambda: kd.digest_blocks(xd, block_elems=be)))
-    if base is not None:
-        out = torch.empty_like(want)
-
-        def old_digest():
-            with B.launching(dev) as stream:
-                err = base[1].digest_blocks_launch(1, B.ptr(xd), B.ptr(out),
-                                                   n, KEYS, be, stream)
-            if err:
-                raise RuntimeError(f"baseline digest_blocks: error {err}")
-        old_digest()
-        emit(kernel="digest_blocks", plan="baseline",
-             equal=torch.equal(out, want), ms=time_ms(old_digest))
 
 
 def rounds():
@@ -281,8 +268,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("what", choices=("kernels", "rounds"))
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="directory of an earlier round_step.cu and "
-                         "digest_blocks.cu (kernels)")
+                    help="directory of an earlier round_step.cu with the "
+                         "long-row kernel's C interface (kernels)")
     ap.add_argument("--root", type=Path, default=None,
                     help="checkout whose src/ holds the port to time "
                          "(rounds; default this one)")

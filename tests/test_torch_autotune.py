@@ -190,10 +190,78 @@ def test_plans_start_with_plan_and_fit(shape):
     for pl in cands:
         assert pl.smem <= ks.SMEM_LIMIT
         assert pl.bulk == (pl.vec_bytes > 0 and pl.stages > 0)
-        assert pl.tile == 32 * (pl.vec_bytes or shape[4]) // shape[4]
+        if pl.short:       # a lane group's columns
+            assert pl.tile == pl.lanes * (pl.vec_bytes // shape[4] or 1)
+        else:              # a warp's
+            assert pl.tile == 32 * (pl.vec_bytes or shape[4]) // shape[4]
     n, p, k, per_origin, elem, u, aligned = shape
     if not aligned or (u * elem) % 16:
         assert cands == (ks.plan(*shape),)        # direct loads only
+
+
+@pytest.mark.parametrize("shape,configs,default", [
+    # Np = 56: {1, 64 // 56, 256 // 56}; 800 threads: direct loads
+    ((50, 4, 5, True, 4, 64, True), [1], (1, 0)),
+    ((50, 4, 1, False, 4, 64, True), [1], (1, 0)),
+    # Np = 16: 16 cut to 8; 512 threads with the stage
+    ((16, 4, 5, True, 4, 32, True), [8, 1, 4], (4, 1)),
+    ((16, 4, 1, False, 4, 32, True), [8, 1, 4], (4, 1)),
+    ((9, 4, 0, False, 4, 64, True), [7, 1, 4], (1, 1)),   # 256 // 16 cut
+    ((15, 4, 5, True, 1, 128, True), [2, 1], (2, 0)),     # bool: no stage
+])
+def test_short_row_ladder_starts_from_the_tpu_choices(shape, configs,
+                                                      default):
+    """The short-row ladder: the most configs a block that fit, then the
+    TPU kernel's g choices {1, 64 // Np, 256 // Np} cut to what fits the
+    threads and shared memory, each with direct loads and (16-byte lanes,
+    where it fits) a bulk-copied stage, and no long-row plan. The default
+    (first) is the most configs in a block of at most 512 threads with the
+    stage, else the most configs with direct loads."""
+    cands = ks.plans(*shape)
+    short = [pl for pl in cands if pl.short]
+    assert set(pl.configs for pl in short) == set(configs)
+    assert (short[0].configs, short[0].stages) == default
+    assert cands == tuple(short) and cands[0] == ks.plan(*shape)
+    n, p, k, per_origin, elem, u, _ = shape
+    s = p if per_origin and k else 1
+    for pl in short:
+        assert pl.threads <= ks.MAX_THREADS and pl.threads % 32 == 0
+        assert pl.stages in (0, 1) and pl.bulk == (pl.stages == 1)
+        stage = (2 + k) * n * u * elem if pl.bulk else 0
+        assert pl.smem == pl.configs * (2 * s * n * u * elem + stage) \
+            + pl.bar_bytes <= ks.SMEM_LIMIT
+        assert not pl.bulk or (pl.vec_bytes == 16 and pl.bar_bytes == 16)
+    staged = [pl for pl in short if pl.bulk and pl.threads <= 512]
+    assert short[0] == (max(staged, key=lambda pl: pl.configs) if staged
+                        else next(pl for pl in short if
+                                  pl.configs == configs[0] and not pl.bulk))
+
+
+@pytest.mark.parametrize("n,u", [(50, 64), (16, 32), (15, 4_194_304)])
+def test_eight_field_cache_entry_resolves_to_the_default(tmp_path,
+                                                          monkeypatch, n, u):
+    """A cache written before plans carried ``lanes`` and ``configs`` holds
+    eight-field plans (tile, vec_bytes, stages, threads, reg_tally,
+    table_bytes, bar_bytes, smem): such an entry is no candidate, so the
+    key resolves to the default plan, and a tuned ten-field entry under the
+    same key resolves from the cache."""
+    path = tmp_path / "c.json"
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+    kw = dict(p=4, k=5, per_origin=True, device="cpu")
+    b = 30_000 if n == 50 else 1 << 20 if n == 16 else 1
+    key = (f"round_step|cpu|max|p4|k5|po1|n{n}|b{common.shape_bucket(b)}"
+           f"|u{common.shape_bucket(u)}|e4|a1")
+    cands = ks.plans(n, 4, 5, True, 4, u, True)
+    for pl in cands:
+        old = [pl.tile, pl.vec_bytes, pl.stages, pl.threads, pl.reg_tally,
+               pl.table_bytes, pl.bar_bytes, pl.smem]
+        path.write_text(json.dumps({key: {"config": old}}))
+        common._TUNE_MEM.clear()
+        assert ops.sync_round_block(b, n, u, **kw) == (cands[0], "default")
+    path.write_text(json.dumps({key: {"config": list(cands[-1])}}))
+    common._TUNE_MEM.clear()
+    assert ops.sync_round_block(b, n, u, **kw) == (cands[-1], "cache")
 
 
 def test_plans_raise_where_nothing_fits():

@@ -84,7 +84,8 @@ WIDTHS = ["u1001", "u1024", "ragged", "offset"]
 def width(name, kind_name):
     """(U, offset) of a WIDTHS case."""
     return {"u1001": (1001, 0), "u1024": (1024, 0), "offset": (1024, 1),
-            "ragged": (4096 if kind_name == "max_bool" else 1000, 0)}[name]
+            "ragged": (4096 if kind_name == "max_bool" else 1000, 0),
+            "u64": (64, 0), "u7": (7, 0)}[name]
 
 
 @pytest.mark.cuda
@@ -478,13 +479,14 @@ def test_round_recv_grid_strides(sm90, kind_name, u, rng, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("flavor", ["bprr", "classic", "state"])
-@pytest.mark.parametrize("u", [32, 64])
+@pytest.mark.parametrize("u", [32, 64, 160])
 def test_round_step_beyond_65535_configs(sm90, flavor, u, rng):
-    """More configs than a grid dimension holds: the launch is cut into
-    chunks of 65,535 (two launches counted), equal to the plain version
-    on the card."""
+    """More configs than a grid dimension holds, equal to the plain version
+    on the card. Short rows (U = 32, 64 int32) take one persistent launch
+    and count one; long rows (U = 160: 40 lane vectors) are cut into
+    chunks of 65,535 configs and count two."""
     topo = topology.partial_mesh(16, 4).on(sm90)
-    n, p, b = 16, 4, 65_537 if u == 32 else 3_001
+    n, p, b = 16, 4, 3_001 if u == 64 else 65_537
     k, per_origin, extracts = FLAVORS[flavor]
     k = p + 1 if k == "P+1" else k
     g = torch.Generator(device=sm90).manual_seed(u)
@@ -505,13 +507,115 @@ def test_round_step_beyond_65535_configs(sm90, flavor, u, rng):
     got = ops.round_step(delta, x, buf, active, dlv, topo.nbrs, topo.rev,
                          **kw)
     torch.cuda.synchronize()
-    assert kstep.launches == n0 + -(-b // kstep.MAX_CONFIGS)
+    pl = kstep.last_launch[0]
+    assert pl.short == (u != 160)
+    assert kstep.launches == n0 + (1 if pl.short else 2) \
+        == n0 + kstep.launches_for(b, pl)
     want = kstep.plain(delta, x, buf, active, dlv, topo.nbrs, topo.rev, **kw)
     for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz", "ssend",
                          "cnt", "dsz"), got, want):
         assert (a is None) == (w is None), nm
         if a is not None:
             assert torch.equal(a, w), nm
+
+
+# the short-row grid: widths about the 32-vector threshold (U = 33 int32 is
+# 33 four-byte lanes: long; bool rows of 33-128 bytes are short), node
+# counts about a warp and beyond 1,024 threads (N = 64, U = 128 int32)
+SHORT_U = (1, 7, 31, 32, 33, 64, 100, 128)
+SHORT_N = (3, 15, 16, 17, 50, 64)
+
+
+def round_case(rng, kind_name, flavor, b, n, u):
+    """Numpy operands of one round on partial_mesh(n, 4) (n = 3: degree 2)
+    with random active and delivered masks, and the topology."""
+    topo = topology.partial_mesh(n, 4 if n > 4 else 2)
+    p = topo.max_degree
+    k, per_origin, extracts = FLAVORS[flavor]
+    k = p + 1 if k == "P+1" else k
+    arrays = [rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, k, b, n, u) if k else None,
+              (rng.integers(0, 2, size=(b, n, p))
+               * topo.mask.numpy()).astype(np.int32),
+              rng.integers(0, 2, size=(b, n)).astype(np.int32) if k else None]
+    return topo, arrays, k, per_origin, extracts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind_name", sorted(KINDS))
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+def test_round_step_short_kernel_vs_plain(sm90, kind_name, flavor, rng):
+    """Every U of SHORT_U and N of SHORT_N at B = 1, g - 1 and g + 1 (g the
+    plan's configs a block; B = 3,001 at N = 16, U = 32), the inbox on and
+    off in turns, every fourth case δ in a view off 16 bytes: bit for bit
+    the plain version, on the kernel the plan names (short where
+    ``short_plans`` has a plan), one launch counted."""
+    kind = KINDS[kind_name][0]
+    elem = 1 if kind_name == "max_bool" else 4
+    case = 0
+    for n in SHORT_N:
+        for u in SHORT_U:
+            off = int(case % 4 == 3)
+            topo, _, k, per_origin, extracts = round_case(
+                rng, kind_name, flavor, 1, n, 1)
+            p = topo.max_degree
+            aligned = not off
+            g = kstep.plan(n, p, k, per_origin, elem, u, aligned).configs
+            bs = sorted({1, max(1, g - 1), g + 1}
+                        | ({3_001} if (n, u) == (16, 32) else set()))
+            for b in bs:
+                topo, arrays, k, per_origin, extracts = round_case(
+                    rng, kind_name, flavor, b, n, u)
+                cpu = [None if a is None else both(a, sm90)[0]
+                       for a in arrays]
+                dev = [None if a is None else both(a, sm90)[1]
+                       for a in arrays]
+                dev[0] = offset_view(dev[0], off)
+                kw = dict(kind=kind, per_origin=per_origin,
+                          extracts=extracts, emit_inbox=bool(case % 2))
+                case += 1
+                n0 = kstep.launches
+                got = kstep.round_step(*dev, topo.nbrs.to(sm90),
+                                       topo.rev.to(sm90), **kw)
+                torch.cuda.synchronize()
+                pl = kstep.last_launch[0]
+                assert pl.short == bool(kstep.short_plans(
+                    n, p, k, per_origin, elem, u, aligned)), (n, u, pl)
+                assert kstep.launches == n0 + 1
+                want = kstep.round_step(*cpu, topo.nbrs, topo.rev, **kw)
+                for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                                     "ssend", "cnt", "dsz"), got, want):
+                    assert_equal(a, w, f"{nm} n={n} u={u} b={b} off={off}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", sorted(FLAVORS))
+@pytest.mark.parametrize("n,u", [(16, 32), (50, 64), (15, 7)])
+def test_round_step_short_grid_strides(sm90, flavor, n, u, rng,
+                                       monkeypatch):
+    """With the short-row grid capped at 3 blocks, every block walks many
+    groups of configs (the store's shapes walk 8-114 groups a block; the
+    bulk-copied stage refills from group to group), under every short-row
+    plan, equal to the plain version."""
+    monkeypatch.setattr(kstep, "MAX_BLOCKS", 3)
+    topo, arrays, k, per_origin, extracts = round_case(
+        rng, "max_i32", flavor, 301, n, u)
+    dev = [None if a is None else both(a, sm90)[1] for a in arrays]
+    args = (*dev, topo.nbrs.to(sm90), topo.rev.to(sm90), "max", per_origin,
+            extracts, True)
+    want = kstep.plain(*args)
+    cands = kstep.short_plans(n, topo.max_degree, k, per_origin, 4, u, True)
+    assert cands
+    for pl in cands:
+        got = kstep._launch(*args, pl=pl)
+        torch.cuda.synchronize()
+        assert kstep.last_launch == (pl, 3)
+        for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                             "ssend", "cnt", "dsz"), got, want):
+            assert (a is None) == (w is None), (pl, nm)
+            if a is not None:
+                assert torch.equal(a, w), (pl, nm)
 
 
 @pytest.mark.cuda
@@ -1002,11 +1106,13 @@ def test_train_100m_tiny_on_the_card(sm90, tmp_path):
 @pytest.mark.parametrize("kind_name", sorted(KINDS))
 @pytest.mark.parametrize("flavor", sorted(FLAVORS))
 @pytest.mark.parametrize("topo_name", ["mesh9d4", "mesh40d4"])
-@pytest.mark.parametrize("w", ["u1024", "ragged", "u1001"])
+@pytest.mark.parametrize("w", ["u1024", "ragged", "u1001", "u64", "u7"])
 def test_every_round_step_plan_equals_plain(sm90, kind_name, flavor,
                                             topo_name, w, rng):
     """Each candidate the autotuner may pick (``round_step.plans``) computes
-    the plain version's round exactly, on B = 2 configs."""
+    the plain version's round exactly, on B = 2 configs; U = 64 and 7 are
+    short rows, whose ladders hold the short-row kernel's plans (configs
+    a block, direct or staged loads)."""
     from repro_torch.kernels import _build as KB
 
     topo = {"mesh9d4": lambda: topology.partial_mesh(9, 4),

@@ -112,6 +112,36 @@ def test_round_step_plain_vs_jax(kind_name, flavor, want_inbox, rng):
         assert_same(g, ow, words and nm in ("x'", "buf'", "inbox"), nm)
 
 
+@pytest.mark.parametrize("kind_name,flavor",
+                         [("max_i32", f) for f in FLAVORS]
+                         + [("bitor_u32", "bprr"), ("max_bool", "classic")])
+def test_round_step_plain_vs_jax_rows_layout(kind_name, flavor, rng):
+    """B = 6 configs of N = 10 nodes and U = 64 columns against the JAX
+    wrapper's ``rows`` layout with g = 4 configs a tile (block (4, 128)):
+    the TPU kernel's several-configs tiling, which the short-row kernel
+    ports, pads B to 8 and U to 128; tolerance 0."""
+    b, n, u = 6, 10, 64
+    topo = jtopo.partial_mesh(n, 4)
+    p = topo.max_degree
+    k, per_origin, extracts = FLAVORS[flavor]
+    k = p + 1 if k == "P+1" else k
+    arrays = (rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, b, n, u),
+              rand_state(rng, kind_name, k, b, n, u) if k else None,
+              (rng.integers(0, 2, size=(b, n, p))
+               * np.asarray(topo.mask)).astype(np.int32),
+              rng.integers(0, 2, size=(b, n)).astype(np.int32) if k else None)
+    kind = KINDS[kind_name][0]
+    emit = arrays[2] is not None and not extracts
+    got = run_port_step(arrays, topo, kind, per_origin, extracts, emit, "cpu")
+    want = jops.sync_round(*jx(arrays), nbrs=topo.nbrs, rev=topo.rev,
+                           kind=kind, per_origin=per_origin,
+                           extracts=extracts, layout="rows", block=(4, 128))
+    words = kind == "bitor"
+    for nm, g, w in zip(STEP_NAMES, got, want):
+        assert_same(g, w, words and nm in ("x'", "buf'", "inbox"), nm)
+
+
 @pytest.mark.parametrize("flavor", ["classic", "bprr"])
 def test_sync_round_emits_the_inbox_the_flavour_needs(flavor, rng):
     """``sync_round`` asks for the masked inbox exactly where the classic/bp
@@ -292,6 +322,65 @@ def test_round_step_scale_shapes_take_the_bulk_path(n, p, k, per_origin,
     assert pl.bulk and pl.stages >= 2 and pl.reg_tally
     # int32: 16 bytes a lane; uint8: 4 (one element a register)
     assert pl.vec_bytes == 4 * elem_size and pl.tile == 128
+
+
+@pytest.mark.parametrize(
+    "n,p,k,per_origin,elem_size,u,aligned,configs,stages", [
+        (50, 4, 5, True, 4, 64, True, 1, 0),   # the Retwis store, bprr: 800
+        (50, 4, 1, False, 4, 64, True, 1, 0),  # threads, direct loads
+        (50, 4, 0, False, 4, 64, True, 1, 0),  # (classic, state)
+        (16, 4, 5, True, 4, 32, True, 4, 1),   # a million objects, bprr:
+        (16, 4, 1, False, 4, 32, True, 4, 1),  # 512 threads and a stage
+        (16, 4, 5, True, 4, 64, True, 1, 1),
+        (15, 4, 5, True, 1, 128, True, 2, 0),  # bool rows: 4-byte lanes
+        (15, 3, 4, True, 4, 100, True, 1, 1),  # 25 vectors: 32 lanes
+        (9, 4, 1, False, 4, 32, False, 3, 0),  # an offset base: elements
+        (3, 2, 3, True, 4, 7, True, 42, 0),    # 28-byte rows: 4-byte lanes
+    ])
+def test_round_step_short_rows_take_the_short_kernel(n, p, k, per_origin,
+                                                     elem_size, u, aligned,
+                                                     configs, stages):
+    """Rows of at most 32 lane vectors take the short-row kernel: a lane
+    group of L lanes (a power of two covering the row) a (config, node)
+    row, g configs a block in whole warps of at most 1,024 threads, two
+    buffers of the S send rows (and, staged, the 2+K input planes and an
+    mbarrier) within SMEM_LIMIT, one launch for any B."""
+    pl = kstep.plan(n, p, k, per_origin, elem_size, u, aligned)
+    s = p if per_origin and k else 1
+    vecs = u * elem_size // pl.vec_bytes if pl.vec_bytes else u
+    assert pl.short and (pl.configs, pl.stages) == (configs, stages)
+    assert pl.lanes & (pl.lanes - 1) == 0 and vecs <= pl.lanes <= 32
+    assert pl.lanes < 2 * vecs
+    assert pl.vec_bytes == 0 if not aligned else pl.vec_bytes in (4, 8, 16)
+    assert pl.bulk == bool(stages) and (not pl.bulk or pl.vec_bytes == 16)
+    assert pl.configs * n * pl.lanes <= kstep.MAX_THREADS
+    assert pl.threads == -(-pl.configs * n * pl.lanes // 32) * 32
+    stage = (2 + k) * n * u * elem_size if pl.bulk else 0
+    assert pl.smem == pl.configs * (2 * s * n * u * elem_size + stage) \
+        + pl.bar_bytes <= kstep.SMEM_LIMIT
+    assert kstep.launches_for(1 << 20, pl) == 1
+
+
+@pytest.mark.parametrize("n,p,k,per_origin,elem_size,u,aligned", [
+    (15, 4, 5, True, 4, 4_194_304, True),  # the scale shape
+    (16, 4, 5, True, 4, 132, True),        # 528 bytes: 33 lane vectors
+    (16, 4, 5, True, 4, 33, False),        # 33 element lanes
+    (100, 4, 5, True, 4, 64, True),        # N·L = 1,600 threads
+    (40, 8, 9, True, 4, 64, True),         # P > REG_TALLY_P
+    (64, 4, 5, True, 4, 128, True),        # one config's sends beyond 227 KB
+])
+def test_round_step_long_rows_keep_their_plans(n, p, k, per_origin,
+                                               elem_size, u, aligned):
+    """Rows beyond 32 lane vectors, N·L beyond 1,024 threads, P beyond
+    REG_TALLY_P or sends beyond shared memory keep the long-row kernel's
+    ladder, one config a block, chunked beyond MAX_CONFIGS configs; the
+    scale shape keeps its 3-stage 16-byte bulk ring of 128 columns."""
+    cands = kstep.plans(n, p, k, per_origin, elem_size, u, aligned)
+    assert all(not pl.short and pl.configs == 1 for pl in cands)
+    assert kstep.launches_for(65_537, cands[0]) == 2
+    if u == 4_194_304:
+        assert cands[0] == kstep.Plan(128, 16, 3, 480, kstep.REG_TALLY_P, 0,
+                                      1, 1632, 32, 224384)
 
 
 @pytest.mark.parametrize("elem_size", [1, 4])
