@@ -6,8 +6,9 @@ synchronizes with all neighbors, like the paper's 1 Hz op+sync tick. The
 rounds are a Python loop (the JAX package's ``lax.scan``): the round index
 is a Python int, the active/quiet gate is a host branch, and nothing in the
 loop reads a device value, so the host only queues work. The per-round
-metrics stay on the device and reach the host once, in
-:func:`collect_result`.
+metrics stay on the device and reach the host once a chunk, stacked on the
+device into the result's layout and copied in one transfer into pinned
+memory (:func:`to_host`); no host pass follows.
 
 ``op_fn(x, t) -> delta`` returns the δ-mutator output of round ``t`` for
 the current states ``x`` [N, ...U]; rounds ``t >= active_rounds`` take no
@@ -39,6 +40,8 @@ package's ``run_scan_chunked``. ``simulate`` runs one chunk.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -189,7 +192,9 @@ class Chunk(NamedTuple):
     arrays [t, ...] (tx, mem, cpu, max_mem_node; a trailing [B] batched),
     ``uniform`` [t, ...] or None, ``tele`` the six telemetry channels and
     ``prov`` the three provenance channels [t, ..., N] (None when not
-    asked for)."""
+    asked for). The metrics and ``uniform`` of a chunk that
+    :func:`to_host` made are time-major views (``.T``) of [..., t] arrays,
+    so that a batched result takes them back to [B, t] without a copy."""
 
     metrics: tuple
     uniform: Optional[np.ndarray]
@@ -312,13 +317,44 @@ def run_blocks(loops: Sequence[RoundLoop], start: int, stop: int) -> list:
     return [loop.finish() for loop in loops]
 
 
+def host_copy(src: torch.Tensor) -> torch.Tensor:
+    """``src`` on the host. A CPU tensor is returned as it is, uncopied; a
+    card's tensor is copied once, without blocking, on its device's current
+    stream into a fresh block of pinned memory from PyTorch's caching host
+    allocator: :func:`host_sync` before reading it. The block is the
+    returned tensor's alone (and its numpy views'), and goes back to the
+    allocator's cache when the last of them is dropped, so that the next
+    result of the same size reuses it without pinning new memory."""
+    if src.device.type == "cpu":
+        return src
+    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    return dst.copy_(src, non_blocking=True)
+
+
+def host_sync(device: torch.device) -> None:
+    """Wait for the copies that :func:`host_copy` queued from ``device``."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def pinned_bytes(device) -> int:
+    """The bytes PyTorch's caching host allocator has pinned so far in this
+    process (never less: a cache hit pins none); 0 off the card."""
+    if torch.device(device).type != "cuda":
+        return 0
+    return int(torch.cuda.host_memory_stats().get(
+        "allocated_bytes.allocated", 0))
+
+
 def stack_host(rounds, k: int, shape: tuple, dtype) -> tuple:
     """A list of rounds' k-tuples of device tensors as k host arrays
     [t, *shape], in one transfer; ``shape`` and ``dtype`` shape an empty
     list's arrays."""
     if rounds:
-        return tuple(torch.stack([torch.stack(tuple(r)) for r in rounds],
-                                 1).cpu().numpy())
+        host = host_copy(torch.stack([torch.stack(tuple(r))
+                                      for r in rounds], 1))
+        host_sync(rounds[0][0].device)
+        return tuple(host.numpy())
     return tuple(np.zeros((0,) + tuple(shape),
                           torch.empty((), dtype=dtype).numpy().dtype)
                  for _ in range(k))
@@ -327,16 +363,48 @@ def stack_host(rounds, k: int, shape: tuple, dtype) -> tuple:
 def to_host(metrics, uniform, track_convergence: bool, lead: tuple = (),
             dtype=torch.int64) -> Chunk:
     """A list of rounds' device metrics (and ``uniform`` flags) as one
-    host Chunk, in one transfer each; ``lead`` and ``dtype`` shape an
-    empty list's arrays."""
-    host = stack_host(metrics, 4, lead, dtype)
-    uni = torch.stack(uniform).cpu().numpy() if uniform else (
-        np.zeros(host[0].shape, bool) if track_convergence else None)
-    return Chunk(metrics=host, uniform=uni)
+    host Chunk, after the overflow check. On the device, each metric of
+    the rounds is stacked straight into the result's layout [..., t]
+    (object-major when batched), beside one overflow flag; all of it then
+    reaches the host in one :func:`host_copy` (and ``uniform`` in one more),
+    and the chunk holds time-major views of it. ``lead`` and ``dtype``
+    shape an empty list's arrays."""
+    if not metrics:
+        host = tuple(np.zeros((0,) + tuple(lead),
+                              torch.empty((), dtype=dtype).numpy().dtype)
+                     for _ in range(4))
+        return Chunk(metrics=host, uniform=np.zeros(host[0].shape, bool)
+                     if track_convergence else None)
+    first = metrics[0][0]
+    shape = tuple(first.shape) + (len(metrics),)
+    dt = functools.reduce(torch.promote_types, (a.dtype for a in metrics[0]))
+    n = math.prod(shape)
+    flat = torch.empty(4 * n + 1, dtype=dt, device=first.device)
+    out = flat[:-1].view((4,) + shape)
+    for i in range(4):
+        torch.stack([m[i] for m in metrics], -1, out=out[i])
+    # Wrap-around in the metric accumulators shows up as negative counts —
+    # impossible for element tallies, so the run fails loudly instead of
+    # reporting garbage (int32 accumulators only, at extreme scale).
+    flat[-1] = out[:3].amin() < 0
+    host = host_copy(flat)
+    uni = host_copy(torch.stack(uniform, -1)) if uniform else None
+    host_sync(first.device)
+    host = host.numpy()
+    if host[-1]:
+        raise OverflowError(
+            "round-metric accumulator overflow: rerun with wide_metrics=True")
+    return Chunk(
+        metrics=tuple(np.moveaxis(a, -1, 0)
+                      for a in host[:-1].reshape((4,) + shape)),
+        uniform=None if uni is None else np.moveaxis(uni.numpy(), -1, 0))
 
 
 def cat_chunks(chunks) -> Chunk:
-    """Chunks of consecutive rounds as one (time-major)."""
+    """Chunks of consecutive rounds as one (time-major); a single chunk is
+    returned as it is."""
+    if len(chunks) == 1:
+        return chunks[0]
 
     def cat(arrays):
         return None if arrays[0] is None else tuple(
@@ -384,20 +452,15 @@ def collect_result(carry, metrics, uniform=None,
                    nbrs=None) -> SimResult:
     """The results of a whole run — a host :class:`Chunk` (time-major),
     or a list of rounds' device metrics with their ``uniform`` flags — as
-    a SimResult ([B, T] when ``batched``), after the overflow check.
-    ``carry`` is the run's final (wrapped) carry; ``telemetry`` and
-    ``provenance`` (their specs) attach their results from the chunk's
-    channels, and ``nbrs`` names provenance's edges."""
+    a SimResult ([B, T] when ``batched``); :func:`to_host` made the
+    overflow check. ``carry`` is the run's final (wrapped) carry;
+    ``telemetry`` and ``provenance`` (their specs) attach their results
+    from the chunk's channels, and ``nbrs`` names provenance's edges. The
+    [B, T] arrays of a one-chunk run are :func:`to_host`'s own, uncopied."""
     ys = metrics if isinstance(metrics, Chunk) \
         else to_host(metrics, uniform, track_convergence)
     carry, _, prov = unwrap_carry(carry, telemetry, provenance)
     tx, mem, cpu, mmax = (a.T if batched else a for a in ys.metrics)
-    # Wrap-around in the metric accumulators shows up as negative counts —
-    # impossible for element tallies, so fail loudly instead of reporting
-    # garbage (int32 accumulators only, at extreme scale).
-    if (tx < 0).any() or (mem < 0).any() or (cpu < 0).any():
-        raise OverflowError(
-            "round-metric accumulator overflow: rerun with wide_metrics=True")
     uni = ys.uniform
     if uni is not None and batched:
         uni = uni.T

@@ -43,8 +43,13 @@ dtype);
 both carries and their channels ride the checkpoints, and a resume under
 another observability configuration is refused. ``trace=`` takes an
 ``obs.TraceLog`` and records the run as a ``store_scan`` span, with a
-``chunk_boundary`` instant at every chunk end of a chunked run and a
-``checkpoint_save`` span around every save.
+``chunk_boundary`` instant at every chunk end of a chunked run, a
+``checkpoint_save`` span around every save, and one ``results_to_host``
+counter: ``bytes``, the results the run brought to the host (its metrics,
+convergence flags, channels and weighted footprint; on the CPU they are
+there already), and ``pinned_bytes``, the pinned host memory newly
+allocated for them (0 when PyTorch's caching host allocator reused its
+blocks, as it does from a store's second run of a size on).
 
 Sharding and padding: ``shard=True`` splits the object axis into equal
 blocks over the devices of ``device`` (``launch.mesh.store_mesh``: every
@@ -88,6 +93,7 @@ from repro_torch.sync.faults import FaultSchedule, FaultViews, shared_views
 from repro_torch.sync.simulator import (Chunk, RoundLoop, SimResult,
                                         cat_chunks, cat_results, check_obs,
                                         collect_result, first_stable_round,
+                                        host_copy, host_sync, pinned_bytes,
                                         run_blocks, wrap_carry)
 from repro_torch.sync.topology import Topology
 
@@ -384,6 +390,13 @@ def _reduce_objects(m: RoundMetrics, uni, ch=None, keep=None):
     return out, uni, ch
 
 
+def _host_bytes(ys: Chunk) -> int:
+    """The bytes of a chunk's arrays."""
+    return sum(a.nbytes for part in (ys.metrics, (ys.uniform,), ys.tele,
+                                     ys.prov) if part is not None
+               for a in part if a is not None)
+
+
 def _pad_tree(tree, lattice: Lattice, pad: int, n: int):
     """Append ``pad`` ⊥ objects [pad, n, ...U] on the leading (object) axis
     of every leaf."""
@@ -641,12 +654,15 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     span = trace.span("store_scan", algo=algo, engine=engine, objects=b,
                       rounds=total) if trace is not None \
         else contextlib.nullcontext()
+    copied = 0
+    pinned = pinned_bytes(dev) if trace is not None else 0
     with span:
         for t0 in range(start, total, step):
             t1 = min(t0 + step, total)
             outs = run_blocks(loops, t0, t1)
             for c, (_, ys) in zip(chunks, outs):
                 c.append(ys)
+                copied += _host_bytes(ys)
             if trace is not None and chunk_rounds is not None:
                 trace.instant("chunk_boundary", rounds_done=t1)
             if ckpt is not None:
@@ -690,7 +706,13 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
         # weighted final-state footprint [B, N]: every irreducible of
         # object b priced at weights[b] bytes, aligned per leaf
         w = torch.as_tensor(spec.weights, dtype=torch.float64, device=dev)
-        fsb = lattice.wsize(sim.final_x, BatchWeights(w)).cpu().numpy()
+        fsb = host_copy(lattice.wsize(sim.final_x, BatchWeights(w)))
+        host_sync(dev)
+        fsb = fsb.numpy()
+        copied += fsb.nbytes
+    if trace is not None:
+        trace.counter("results_to_host", {
+            "bytes": copied, "pinned_bytes": pinned_bytes(dev) - pinned})
     return StoreResult(sim=sim, weights=spec.weights, final_state_bytes=fsb,
                        object_metrics=object_metrics, num_objects=b)
 

@@ -1252,3 +1252,68 @@ def test_one_rank_mesh_train_step_equals_the_plain_one(sm90, arch):
                 float(w.abs().max()), 1.0)
     finally:
         dist.destroy_process_group()
+
+
+def retwis_store(seed, objects=3000, nodes=16, slots=16, rounds=12):
+    """A small Retwis store run's arguments, op stream drawn from ``seed``."""
+    from repro_torch.core import MapLattice
+    from repro_torch.core import value_lattices as vl
+    from repro_torch.sync import StoreSpec
+    counts = workloads.retwis(objects, nodes, rounds, 4, 1.0,
+                              seed=seed).update_counts()
+    spec = StoreSpec(objects=objects, weights=workloads.retwis_weights(
+        objects), op_fn=workloads.versioned_slot_op(counts, slots))
+    return ("bprr", MapLattice(slots, vl.max_int()).build(),
+            topology.partial_mesh(nodes, 4), spec, rounds - 3, 3)
+
+
+@pytest.mark.cuda
+def test_store_results_reach_pinned_memory_once(sm90):
+    """A store's results reach the host in pinned memory equal to the CPU
+    run's; a result kept while the next run of its size runs keeps its
+    values; and once a run of that size has pinned its blocks, the next
+    run (the first result dropped) pins no new bytes, by the
+    ``results_to_host`` counter and by the allocator's own statistics."""
+    import gc
+
+    from repro_torch.obs import TraceLog
+    from repro_torch.sync import simulate_store
+
+    fields = ("tx", "mem", "cpu", "max_mem_node", "final_state_bytes")
+
+    def arrays(res):
+        return [getattr(res, f) for f in fields]
+
+    def run(seed, trace=None):
+        return simulate_store(*retwis_store(seed), engine="mega",
+                              trace=trace, device=sm90)
+
+    def two_kept():
+        # a function of its own, so that no name outlives the two results
+        first = run(1)
+        want = simulate_store(*retwis_store(1), engine="mega", device="cpu")
+        for f, a, b in zip(fields, arrays(first), arrays(want)):
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+            assert a.flags.c_contiguous, f
+            assert torch.from_numpy(a).is_pinned(), f
+        kept = [a.copy() for a in arrays(first)]
+        second = run(2)
+        for f, a, b, c in zip(fields, arrays(first), kept, arrays(second)):
+            np.testing.assert_array_equal(a, b, err_msg=f)
+            assert not np.shares_memory(a, c), f
+        assert any(not np.array_equal(a, c)
+                   for a, c in zip(arrays(first), arrays(second)))
+
+    two_kept()
+    gc.collect()
+    for seed in (3, 4):
+        log = TraceLog()
+        before = torch.cuda.host_memory_stats()["allocated_bytes.allocated"]
+        res = run(seed, log)
+        after = torch.cuda.host_memory_stats()["allocated_bytes.allocated"]
+        (counter,) = [e["args"] for e in log.events
+                      if e["name"] == "results_to_host"]
+        assert counter["bytes"] == sum(a.nbytes for a in arrays(res))
+        assert counter["pinned_bytes"] == 0 and after == before, seed
+        del res

@@ -14,6 +14,9 @@
   resume of another run, ``object_metrics=False`` aggregates, the eager
   validation, the options that wait for later slices (shard, pad_to) and
   the refusal of a malformed observability argument.
+* The results path: every run kind's arrays against the earlier host path
+  (``test_torch_simulate.old_host_path``), the same checkpoint bundles,
+  and the ``results_to_host`` trace counter.
 * The committed ``fig11_retwis.json`` zipf 1.0 row at its default shape.
 """
 
@@ -36,6 +39,7 @@ from repro.sync import topology as jtopo
 from repro.sync import workloads as jW
 from test_store import _scalar_max_lattice as jax_scalar_max_lattice
 from test_sweep import bitgset_sweep_ops as jax_bitgset_sweep_ops
+from test_torch_simulate import assert_same_host_result, old_host_path
 from test_torch_sweep import assert_same_run, bitgset_ops
 
 from repro_torch.checkpoint import Checkpointer
@@ -363,6 +367,70 @@ def test_store_reduced_metrics_exact_aggregates():
             getattr(red, view)
     with pytest.raises(ValueError, match="object_metrics"):
         red.object_result(0)
+
+
+def results_path_run(kind, ckpt_dir):
+    """One store run of ``kind`` on the CPU: a single chunk, chunks,
+    checkpoints and a resume from round 8, a pad, reduced metrics or
+    telemetry."""
+    if kind == "resume":
+        run(chunk_rounds=4, checkpoint=ckpt_dir)
+        ttp, lat, spec = scale_fixture()
+        return resume_store("bprr", lat, ttp, spec, T, Q,
+                            checkpoint=ckpt_dir, step=8, device="cpu")
+    from repro_torch.obs import TelemetrySpec
+    return run(**{"single": {}, "chunked": {"chunk_rounds": 4},
+                  "padded": {"pad_to": 4},
+                  "reduced": {"object_metrics": False},
+                  "telemetry": {"telemetry": TelemetrySpec()}}[kind])
+
+
+@pytest.mark.parametrize("kind", ["single", "chunked", "resume", "padded",
+                                  "reduced", "telemetry"])
+def test_store_results_path_equals_the_old_host_path(kind, tmp_path,
+                                                     monkeypatch):
+    new = results_path_run(kind, tmp_path / "new")
+    old_host_path(monkeypatch)
+    old = results_path_run(kind, tmp_path / "old")
+    assert_same_host_result(new, old, kind)
+    if kind == "telemetry":
+        for f in new.telemetry._fields[:6]:
+            a, b = getattr(new.telemetry, f), getattr(old.telemetry, f)
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    if kind == "resume":
+        # the bundles hold the same bytes: time-major views save as the
+        # earlier path's time-major arrays did
+        new_ck, old_ck = Checkpointer(tmp_path / "new"), \
+            Checkpointer(tmp_path / "old")
+        assert new_ck.available_steps() == old_ck.available_steps()
+        for step in new_ck.available_steps():
+            assert new_ck.manifest(step)["digest"] == \
+                old_ck.manifest(step)["digest"], step
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_store_results_to_host_counter(chunk, monkeypatch):
+    """``trace=`` records one ``results_to_host`` counter a run: the bytes
+    of its results on the host, and no pinned memory on the CPU. Without
+    ``trace`` nothing is recorded and the allocator is not read."""
+    from repro_torch.obs import TraceLog
+    from repro_torch.sync import store
+
+    log = TraceLog()
+    res = run(chunk_rounds=chunk, trace=log)
+    counters = [e for e in log.events if e["name"] == "results_to_host"]
+    assert len(counters) == 1 and counters[0]["ph"] == "C"
+    want = sum(a.nbytes for a in (res.tx, res.mem, res.cpu, res.max_mem_node,
+                                  res.uniform, res.final_state_bytes))
+    assert counters[0]["args"] == {"bytes": float(want),
+                                   "pinned_bytes": 0.0}
+
+    def unread(device):
+        raise AssertionError("the allocator was read without trace=")
+
+    monkeypatch.setattr(store, "pinned_bytes", unread)
+    assert_store_identical(run(chunk_rounds=chunk), res)
 
 
 def test_store_validation_and_unported_options():

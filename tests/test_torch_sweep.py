@@ -11,6 +11,8 @@
 * Stacked initial states, ``stack_op``, the mixed-rank linear sum, the
   spec's validation, the option that waits for a later slice (shard)
   and the refusal of a malformed observability argument.
+* The results path against the earlier host path
+  (``test_torch_simulate.old_host_path``), whole and over two blocks.
 """
 
 import functools
@@ -106,6 +108,28 @@ def port_sweep(algo, engine, faulted):
     return simulate_sweep(algo, GSet(N * T).lattice, ttp, spec,
                           active_rounds=T, quiet_rounds=Q, engine=engine,
                           device="cpu")
+
+
+@pytest.mark.parametrize("shard", [False, True], ids=["one_block",
+                                                     "two_blocks"])
+@pytest.mark.parametrize("faulted", [False, True], ids=["fault_free",
+                                                       "faulted"])
+def test_sweep_results_path_equals_the_old_host_path(faulted, shard,
+                                                     monkeypatch):
+    from test_torch_simulate import assert_same_host_result, old_host_path
+    _, ttp = topos()
+    spec = SweepSpec(batch=4, op_fn=tW.gset_unique_sweep_op(
+        N, T, SEEDS + (5,)), faults=(fault_mix(FaultSchedule, ttp) + [None])
+        if faulted else None)
+
+    def run():
+        return simulate_sweep("bprr", GSet(N * T).lattice, ttp, spec,
+                              active_rounds=T, quiet_rounds=Q, shard=shard,
+                              device=["cpu"] * 2 if shard else "cpu")
+
+    new = run()
+    old_host_path(monkeypatch)
+    assert_same_host_result(new, run(), f"faulted={faulted}")
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -10,7 +10,8 @@
   replica under bprr: non-convergence; a mid-run partition under
   full-state sync: fault stalls), at a small size.
 * The store's trace: the ``store_scan`` span, the chunk boundaries and the
-  checkpoint saves, named and annotated as the JAX package's.
+  checkpoint saves, named and annotated as the JAX package's, and the
+  port's own ``results_to_host`` counter after them.
 * ``annotate`` labels a region in a ``torch.profiler`` trace.
 """
 
@@ -232,14 +233,19 @@ def test_store_trace_matches_jax(tmp_path):
     def shape(log):
         return [(e["name"], e["ph"], e["args"]) for e in log.events]
 
-    assert shape(tlog) == shape(jlog)
+    # the port adds one results_to_host counter, last; the rest is the JAX
+    # package's trace
+    assert [e["name"] for e in tlog.events].count("results_to_host") == 1
+    assert tlog.events[-1]["name"] == "results_to_host"
+    assert shape(tlog)[:-1] == shape(jlog)
     assert [e["name"] for e in tlog.events].count("chunk_boundary") == 3
     plain = TraceLog()
     simulate_store("bprr", ttypes.GSet(n * t).lattice, ttp,
                    StoreSpec(objects=b,
                              op_fn=tW.gset_unique_sweep_op(n, t, (0,))),
                    t, q, trace=plain, device="cpu")
-    assert [e["name"] for e in plain.events] == ["store_scan"]
+    assert [e["name"] for e in plain.events] == ["store_scan",
+                                                 "results_to_host"]
 
 
 def test_annotate_labels_a_profiled_region():
