@@ -251,10 +251,18 @@ def check_block_op(op_fn, lattice: Lattice, n: int, blocks: List[Block],
     except Exception as e:  # noqa: BLE001 - re-raised as a refusal
         ok, err = False, e
     if not ok:
-        raise ValueError(
-            f"{what} cannot run on a sharded {axis} axis: each of the "
-            f"{len(blocks)} blocks runs its own {rows} {axis}s, so op_fn "
-            f"must derive the {axis} extent from x (e.g. x.shape[0]) or "
-            f"cut its tables with a for_block(lo, hi) method rather than "
-            f"close over whole-batch op tables"
-            + (f" (the block call failed with: {err})" if err else ""))
+        raise unshardable_op(what, axis, len(blocks), rows, err)
+
+
+def unshardable_op(what: str, axis: str, shards: int, rows: int,
+                   err: Optional[Exception] = None) -> ValueError:
+    """The refusal of an op stream that cannot run on a block of ``rows``
+    entries of a ``shards``-block ``axis`` (``err``: how the block call
+    failed, if it raised)."""
+    return ValueError(
+        f"{what} cannot run on a sharded {axis} axis: each of the "
+        f"{shards} blocks runs its own {rows} {axis}s, so op_fn "
+        f"must derive the {axis} extent from x (e.g. x.shape[0]) or "
+        f"cut its tables with a for_block(lo, hi) method rather than "
+        f"close over whole-batch op tables"
+        + (f" (the block call failed with: {err})" if err else ""))

@@ -49,7 +49,14 @@ counter: ``bytes``, the results the run brought to the host (its metrics,
 convergence flags, channels and weighted footprint; on the CPU they are
 there already), and ``pinned_bytes``, the pinned host memory newly
 allocated for them (0 when PyTorch's caching host allocator reused its
-blocks, as it does from a store's second run of a size on).
+blocks, as it does from a store's second run of a size on). A sharded run
+also records one ``store_blocks`` counter: ``blocks``,
+``objects_per_block`` and ``gathered_bytes``, the final states copied onto
+the first device from the others. Three phases carry
+``torch.profiler`` labels (``obs.annotate``; no cost outside a profile):
+``store.check`` (the checks before anything runs), ``store.collect``
+(every block's results to the host) and ``store.gather`` (the blocks
+gathered on the first device, the pad masked out, the footprint's copy).
 
 Sharding and padding: ``shard=True`` splits the object axis into equal
 blocks over the devices of ``device`` (``launch.mesh.store_mesh``: every
@@ -61,7 +68,10 @@ shard multiple (``pad_to`` forces a multiple, which the shard count must
 divide). With one block the op stream sees exactly the unpadded objects;
 over several, each block runs ``op_fn.for_block(lo, hi)`` when the op_fn
 has one (``workloads.versioned_slot_op``), else ``op_fn`` itself, which
-must then derive the object extent from ``x``. The pad is sliced off the
+must then derive the object extent from ``x``. Over several blocks the op
+stream is checked block by block, each on its own initial states on its own
+device (no device holds a whole-store state or op table); one block checks
+it on the whole store. The pad is sliced off the
 per-object results and masked out of the in-loop reductions: with
 ``object_metrics=False``, ``sim`` holds [S, T] per-shard partials (S the
 block count), through chunks, checkpoints (a bundle holds a carry and a
@@ -86,6 +96,7 @@ from repro_torch.core.lattice import BatchWeights, Lattice, tree_leaves
 from repro_torch.launch import mesh
 from repro_torch.obs import provenance as prv
 from repro_torch.obs import telemetry as tel
+from repro_torch.obs.trace import annotate
 from repro_torch.sync import treeops as T
 from repro_torch.sync.algorithms import RoundMetrics, SyncAlgorithm
 from repro_torch.sync.digest import DigestSpec
@@ -337,6 +348,11 @@ def _validate_op_fn(op_fn, x, objects: int, n: int):
         raise ValueError(
             f"StoreSpec.op_fn failed on the stacked state [objects="
             f"{objects}, nodes={n}, ...universe]: {e}") from e
+    _check_delta(out, x)
+
+
+def _check_delta(out, x):
+    """Refuse a delta ``out`` that is not shaped as the state ``x``."""
     if isinstance(out, tuple) != isinstance(x, tuple) or \
             len(tree_leaves(out)) != len(tree_leaves(x)):
         raise ValueError("StoreSpec.op_fn must return one delta leaf per "
@@ -348,6 +364,38 @@ def _validate_op_fn(op_fn, x, objects: int, n: int):
                 f"{tuple(o.shape)} for a state leaf of shape "
                 f"{tuple(a.shape)}: deltas must match the stacked [objects, "
                 f"nodes, ...universe] state exactly")
+
+
+def _validate_block_op(op_fn, x, shards: int):
+    """Call one block's op stream once on the block's initial states ``x``
+    (round 0), on the block's device, and check its output before anything
+    runs. A call that raises, or deltas of another object extent than the
+    block's, are refused as an op stream that cannot be sharded (it closes
+    over whole-store tables); other mis-shaped deltas as
+    :func:`_validate_op_fn` refuses them."""
+    rows = tree_leaves(x)[0].shape[0]
+    try:
+        out = op_fn(x, 0)
+    except Exception as e:  # noqa: BLE001 - re-raised as a refusal
+        raise mesh.unshardable_op("StoreSpec.op_fn", mesh.STORE_AXIS, shards,
+                                  rows, e) from e
+    if any(o.ndim == 0 or o.shape[0] != rows for o in tree_leaves(out)):
+        raise mesh.unshardable_op("StoreSpec.op_fn", mesh.STORE_AXIS, shards,
+                                  rows)
+    _check_delta(out, x)
+
+
+def _block_x0(x0, lattice: Lattice, block: mesh.Block, objects: int, n: int):
+    """Objects [lo, hi) of the stacked initial states (⊥ where ``x0`` is
+    None) on the block's device; those at or past ``objects`` (the shard
+    pad) at ⊥."""
+    rows = block.hi - block.lo
+    if x0 is None:
+        return T.bcast(lattice.bottom(block.device), (rows, n))
+    real = max(min(block.hi, objects) - block.lo, 0)
+    out = T.to(T.tree_map(lambda a: a[block.lo:block.lo + real], x0),
+               block.device)
+    return _pad_tree(out, lattice, rows - real, n) if real < rows else out
 
 
 def _reduce_objects(m: RoundMetrics, uni, ch=None, keep=None):
@@ -555,19 +603,6 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     b_pad, blocks = _object_blocks(b, shard, pad_to, device)
     nshard, pad, dev = len(blocks), b_pad - b, blocks[0].device
 
-    # -- eager validation (before anything runs) ----------------------------
-    if spec.x0 is not None:
-        _validate_x0(spec.x0, lattice, n, b)
-    x0 = None if spec.x0 is None else T.to(spec.x0, dev)
-    x_first = x0 if x0 is not None else \
-        T.bcast(lattice.bottom(dev), (b, n))
-    _validate_op_fn(spec.op_fn, x_first, b, n)
-    del x_first
-    mesh.check_block_op(spec.op_fn, lattice, n, blocks, "StoreSpec.op_fn",
-                        mesh.STORE_AXIS)
-    if pad and x0 is not None:
-        x0 = _pad_tree(x0, lattice, pad, n)
-
     def block_op(blk):
         if nshard > 1:
             # each block runs its own rows; the pad's rows are masked out
@@ -584,11 +619,36 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
 
         return op_fn
 
+    # -- eager validation (before anything runs) ----------------------------
+    # One block: the op stream on the whole store. Several: each block's
+    # own op stream on its own initial states, on its own device, so that
+    # no device holds a whole-store state or op table.
+    if spec.x0 is not None:
+        _validate_x0(spec.x0, lattice, n, b)
+    with annotate("store.check"):
+        if nshard == 1:
+            x0 = None if spec.x0 is None else T.to(spec.x0, dev)
+            x_first = x0 if x0 is not None else \
+                T.bcast(lattice.bottom(dev), (b, n))
+            _validate_op_fn(spec.op_fn, x_first, b, n)
+            del x_first
+            if pad and x0 is not None:
+                x0 = _pad_tree(x0, lattice, pad, n)
+            x0s = [x0]
+            del x0
+        else:
+            x0s = []
+            for blk in blocks:
+                x_blk = _block_x0(spec.x0, lattice, blk, b, n)
+                _validate_block_op(block_op(blk), x_blk, nshard)
+                x0s.append(None if spec.x0 is None else x_blk)
+                del x_blk
+
     if track_convergence is None:
         track_convergence = spec.faults is not None
     mdt = torch.int64 if wide_metrics else torch.int32
     algs, carries, views = [], [], {}
-    for blk in blocks:
+    for blk, x0_blk in zip(blocks, x0s):
         alg = SyncAlgorithm(
             name=algo, lattice=lattice, topo=topo.on(blk.device), loo=loo,
             engine=engine, metric_dtype=mdt, digest=digest,
@@ -596,12 +656,10 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
         if str(blk.device) not in views:      # one upload a device
             views[str(blk.device)] = spec.shared_views(topo, total,
                                                        blk.device)
-        x0_blk = None if x0 is None else T.tree_map(
-            lambda a: a[blk.lo:blk.hi].to(blk.device), x0)
         algs.append(alg)
         carries.append(wrap_carry(alg, alg.init(x0_blk), telemetry,
                                   provenance))
-    del x0
+    del x0s, x0_blk
     fp = _run_fingerprint(algo, engine, lattice, topo, loo, b, b_pad,
                           nshard, total, chunk_rounds, object_metrics,
                           track_convergence, wide_metrics, digest,
@@ -676,40 +734,50 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
     if not chunks[0]:
         raise ValueError(f"nothing to run: start={start} >= total={total}")
     parts = []
-    while loops:
-        # one block's carry at a time: a collected block frees its buffers
-        carry, _ = loops.pop(0).finish()
-        parts.append(collect_result(
-            carry, cat_chunks(chunks.pop(0)), batched=True,
-            telemetry=telemetry, provenance=provenance, nbrs=topo.nbrs))
-        del carry
-    sim = cat_results(parts, dev)
-    del parts
+    with annotate("store.collect"):
+        while loops:
+            # one block's carry at a time: a collected block frees its
+            # buffers
+            carry, _ = loops.pop(0).finish()
+            parts.append(collect_result(
+                carry, cat_chunks(chunks.pop(0)), batched=True,
+                telemetry=telemetry, provenance=provenance, nbrs=topo.nbrs))
+            del carry
+    with annotate("store.gather"):
+        if trace is not None and nshard > 1:
+            trace.counter("store_blocks", {
+                "blocks": nshard, "objects_per_block": b_pad // nshard,
+                "gathered_bytes": sum(
+                    a.numel() * a.element_size() for part in parts
+                    for a in tree_leaves(part.final_x) if a.device != dev)})
+        sim = cat_results(parts, dev)
+        del parts
 
-    # -- mask the pad back out ----------------------------------------------
-    if pad:
-        fx = T.tree_map(lambda a: a[:b], sim.final_x)
-        if object_metrics:
-            sim = sim._replace(
-                tx=sim.tx[:b], mem=sim.mem[:b], cpu=sim.cpu[:b],
-                max_mem_node=sim.max_mem_node[:b], final_x=fx,
-                uniform=None if sim.uniform is None else sim.uniform[:b],
-                telemetry=None if sim.telemetry is None
-                else sim.telemetry.take_lead(b),
-                provenance=None if sim.provenance is None
-                else sim.provenance.take_lead(b))
-        else:
-            sim = sim._replace(final_x=fx)   # metrics masked in the loop
+        # -- mask the pad back out ------------------------------------------
+        if pad:
+            fx = T.tree_map(lambda a: a[:b], sim.final_x)
+            if object_metrics:
+                sim = sim._replace(
+                    tx=sim.tx[:b], mem=sim.mem[:b], cpu=sim.cpu[:b],
+                    max_mem_node=sim.max_mem_node[:b], final_x=fx,
+                    uniform=None if sim.uniform is None else sim.uniform[:b],
+                    telemetry=None if sim.telemetry is None
+                    else sim.telemetry.take_lead(b),
+                    provenance=None if sim.provenance is None
+                    else sim.provenance.take_lead(b))
+            else:
+                sim = sim._replace(final_x=fx)  # metrics masked in the loop
 
-    fsb = None
-    if spec.weights is not None:
-        # weighted final-state footprint [B, N]: every irreducible of
-        # object b priced at weights[b] bytes, aligned per leaf
-        w = torch.as_tensor(spec.weights, dtype=torch.float64, device=dev)
-        fsb = host_copy(lattice.wsize(sim.final_x, BatchWeights(w)))
-        host_sync(dev)
-        fsb = fsb.numpy()
-        copied += fsb.nbytes
+        fsb = None
+        if spec.weights is not None:
+            # weighted final-state footprint [B, N]: every irreducible of
+            # object b priced at weights[b] bytes, aligned per leaf
+            w = torch.as_tensor(spec.weights, dtype=torch.float64,
+                                device=dev)
+            fsb = host_copy(lattice.wsize(sim.final_x, BatchWeights(w)))
+            host_sync(dev)
+            fsb = fsb.numpy()
+            copied += fsb.nbytes
     if trace is not None:
         trace.counter("results_to_host", {
             "bytes": copied, "pinned_bytes": pinned_bytes(dev) - pinned})

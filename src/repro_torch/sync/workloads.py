@@ -364,39 +364,50 @@ def versioned_slot_op(counts: np.ndarray, slots: int) -> Callable:
     derived from the object's current version, so concurrent updates from
     different nodes hit overlapping slots — the contention of the paper's
     Zipf workload. Returns an op_fn over stacked states [B, N, slots]; the
-    count table goes to the device once, as [T, B, N]. Its ``for_block(lo,
-    hi)`` is the op stream of objects [lo, hi) alone: a sharded store
-    (``simulate_store(shard=True)``) runs it on each device's block; each
-    block's op is built once and keeps its own device table."""
-    return _slot_op(np.ascontiguousarray(np.transpose(
-        np.asarray(counts, np.int32), (0, 2, 1))), slots)       # [T, B, N]
-
-
-def _slot_op(upd: np.ndarray, slots: int) -> Callable:
-    """:func:`versioned_slot_op` over an update table [T, B, N]."""
-    tables = _per_device(lambda dev: (
-        torch.as_tensor(upd, device=dev),
-        torch.arange(slots, dtype=torch.int32, device=dev)))
+    count table goes to a device once, as [T, B, N], at the op's first call
+    there. Its ``for_block(lo, hi)`` is the op stream of objects [lo, hi)
+    alone: a sharded store (``simulate_store(shard=True)``) runs it on each
+    device's block; each block's op is built once and cuts its own [T, hi
+    - lo, N] table straight from ``counts`` at its first call, so a sharded
+    run never makes the whole store's table. ``counts`` (int32 is kept
+    without a copy) is read when a table is made: leave it unchanged."""
+    counts = np.asarray(counts, np.int32)
+    op_fn = _slot_op(counts, 0, counts.shape[2], slots)
     blocks = {}
-
-    def op_fn(x, t):
-        tab, cols = tables(x.device)
-        if x.shape[0] != tab.shape[1]:
-            raise ValueError(f"count table built for {tab.shape[1]} objects "
-                             f"cannot serve {x.shape[0]} object rows")
-        return _slot_bumps(x, tab[t], slots, cols)
 
     def for_block(lo: int, hi: int) -> Callable:
         """The op stream of objects [lo, hi); rows at or past the table's
         objects (the shard pad) take no ops."""
         if (lo, hi) not in blocks:
-            block = np.zeros((upd.shape[0], hi - lo, upd.shape[2]), np.int32)
-            real = upd[:, lo:hi]
-            block[:, :real.shape[1]] = real
-            blocks[lo, hi] = _slot_op(block, slots)
+            blocks[lo, hi] = _slot_op(counts, lo, hi, slots)
         return blocks[lo, hi]
 
     op_fn.for_block = for_block
+    return op_fn
+
+
+def _count_table(counts: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """Objects [lo, hi) of the counts [T, N, B] as an update table [T, hi -
+    lo, N]; rows at or past B take no ops."""
+    t, n, b = counts.shape
+    out = np.zeros((t, hi - lo, n), np.int32)
+    out[:, :max(min(hi, b) - lo, 0)] = counts[:, :, lo:hi].transpose(0, 2, 1)
+    return out
+
+
+def _slot_op(counts: np.ndarray, lo: int, hi: int, slots: int) -> Callable:
+    """:func:`versioned_slot_op` over objects [lo, hi) of ``counts``."""
+    tables = _per_device(lambda dev: (
+        torch.as_tensor(_count_table(counts, lo, hi), device=dev),
+        torch.arange(slots, dtype=torch.int32, device=dev)))
+
+    def op_fn(x, t):
+        if x.shape[0] != hi - lo:
+            raise ValueError(f"count table built for {hi - lo} objects "
+                             f"cannot serve {x.shape[0]} object rows")
+        tab, cols = tables(x.device)
+        return _slot_bumps(x, tab[t], slots, cols)
+
     return op_fn
 
 
