@@ -39,7 +39,12 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    which must launch once, beside the long-row kernel, equal), ``round_recv``
    and ``buffer_fold`` timed at the store's shapes (30,000 × mesh50 × 64
    slots, bprr and classic; 1,048,576 × mesh16 × 32, bprr) beside their
-   bounds;
+   bounds; ``slot_bump``, the Retwis op stream's kernel (which replaces no
+   TPU kernel and keeps its own launch counter, counted in every phase
+   below beside the eight), equal to its plain version with 500 rows and
+   with every row counted, launched once a call, and timed beside it and
+   its byte bound at [30,000, 50, 64], a card's block of the
+   786,432-object store [196,608, 50, 64] and [1,048,576, 16, 32];
 4. paper size, each run on all three engines (bit-identical, each kernel
    engine's launches equal to its rounds):
    - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
@@ -875,6 +880,69 @@ def store_kernel_timings(check, dev, log):
               f"{rb_ms:.3f})", flush=True)
     log["store_kernel_timings"] = out
     return out
+
+
+SLOT_BUMP_SHAPES = ((30_000, 50, 64), (196_608, 50, 64), (1 << 20, 16, 32))
+SLOT_BUMP_COUNTED = 500          # rows with ops in a Retwis round
+
+
+def slot_bump_timings(check, dev, log):
+    """``slot_bump``, the Retwis op stream's kernel, at the store's shapes:
+    the 30,000-object store, a card's block of the 786,432-object one and
+    the million-object one. At each, with ``SLOT_BUMP_COUNTED`` rows
+    counted (1-3 bumps, a round's ops) and with every row counted: equal
+    bit for bit to its plain version, one launch a call, and timed beside
+    the plain version and the byte bound of that call's inputs (the delta
+    written, the counts read and the counted rows of x read). Returns the
+    kernel table's row: the error, the 30,000-object store's Retwis-round
+    timing and every shape's rows."""
+    import torch
+
+    from repro_torch.kernels import slot_bump as ksb
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    err, shapes = 0.0, []
+    for b, n, u in SLOT_BUMP_SHAPES:
+        x = rand_state(g, "words", (b, n, u), dev)
+        rows = b * n
+        sparse = torch.zeros(rows, dtype=torch.int32, device=dev)
+        at = torch.randperm(rows, generator=g, device=dev)[:SLOT_BUMP_COUNTED]
+        sparse[at] = torch.randint(1, 4, (SLOT_BUMP_COUNTED,), generator=g,
+                                   device=dev, dtype=torch.int32)
+        for counts, cnt in (("a Retwis round", sparse.view(b, n)),
+                            ("every row", torch.randint(
+                                -1, u + 2, (b, n), generator=g, device=dev,
+                                dtype=torch.int32))):
+            before = ksb.launches
+            got = ksb.slot_bump(x, cnt, u)
+            launched = ksb.launches - before
+            e = max_abs_err(got, ksb.plain(x, cnt, u))
+            del got
+            err = max(err, e)
+            check(e == 0 and launched == 1,
+                  f"slot_bump [{b}, {n}, {u}] {counts}: error {e}, "
+                  f"{launched} launches")
+            counted = int((cnt > 0).sum())
+            b_ms, b_by = bound((rows * u + rows + counted * u) * 4,
+                               rows * u)
+            ms = time_ms(lambda: ksb.slot_bump(x, cnt, u), reps=5)
+            plain_ms = time_ms(lambda: ksb.plain(x, cnt, u), reps=5)
+            shapes.append({"shape": f"[{b}, {n}, {u}] int32", "counts":
+                           counts, "counted_rows": counted, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "max_abs_err": e,
+                           "launches_per_call": launched})
+            print(f"slot_bump [{b}, {n}, {u}] {counts} ({counted} rows "
+                  f"counted): {ms:.3f} ms (bound {b_ms:.3f} by {b_by}, "
+                  f"{ms and b_ms / ms:.1%}), plain {plain_ms:.3f} ms",
+                  flush=True)
+            del cnt
+        del x, sparse
+        torch.cuda.empty_cache()
+    first = shapes[0]
+    log["slot_bump_timings"] = shapes
+    return err, (err, first["ms"], first["plain_ms"], first["bound_ms"],
+                 first["bound_by"], None), shapes
 
 
 def elementwise_state(g, tname, shape, dev):
@@ -2184,19 +2252,28 @@ RETWIS_APP_EXPECT = {
 
 def retwis_app_phase(check, log):
     """``repro_torch.retwis_app`` on the card and on the CPU: the same
-    numbers and lines, equal to the JAX example's; no kernel launched (the
-    store's default engine is the reference)."""
+    numbers and lines, equal to the JAX example's; no sync kernel launched
+    (the store's default engine is the reference), and ``slot_bump`` once
+    for the store's op check and once for each active round on the card,
+    never on the CPU."""
     from repro_torch import kernels, retwis_app
+    from repro_torch.kernels import slot_bump as ksb
 
     before = kernels.launch_counts()
+    ops_before = ksb.launches
     t0 = time.perf_counter()
     card = retwis_app.run("cuda")
     card_s = time.perf_counter() - t0
+    ops = ksb.launches - ops_before
     t0 = time.perf_counter()
     cpu = retwis_app.run("cpu")
     cpu_s = time.perf_counter() - t0
     check(kernels.launch_counts() == before,
           f"retwis_app launched {kernels.launch_counts()} (before {before})")
+    check(ops == retwis_app.ROUNDS + 1 and ksb.launches - ops_before == ops,
+          f"retwis_app: slot_bump launched {ops} times on the card and "
+          f"{ksb.launches - ops_before - ops} on the CPU, expected "
+          f"{retwis_app.ROUNDS + 1} and 0")
     check(card == cpu, f"retwis_app: card {card} vs cpu {cpu}")
     got = {k: card[k] for k in RETWIS_APP_EXPECT}
     check(got == RETWIS_APP_EXPECT,
@@ -4912,6 +4989,7 @@ def main() -> int:
         return 2
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    from repro_torch.kernels import slot_bump as ksb
 
     global INT_OPS_PER_S
     check = Checks()
@@ -4964,6 +5042,12 @@ def main() -> int:
                          dev, log))
     store_shapes = timed("store_kernel_timings", store_kernel_timings, check,
                          dev, log)
+    # slot_bump, the Retwis op stream's kernel, replaces no TPU kernel and
+    # keeps its own launch counter (kernels.KERNELS holds the eight that
+    # do): it is counted here path by path, beside launch_counts()
+    sb_err, sb_timing, sb_shapes = timed(
+        "slot_bump_timings", slot_bump_timings, check, dev, log)
+    ops = {}
 
     # 9 (a, b). the gossip runtime (host-bound, no kernel), before any
     # profiler window
@@ -4973,6 +5057,7 @@ def main() -> int:
     # 4 + 5. the sync engines' main path, with the launch counters zeroed
     # around it
     kernels.reset_launches()
+    ksb.launches = 0
     expect = Launches(check)
     singles = {}
     timed("paper", paper_phase, check, expect, log)
@@ -4985,10 +5070,12 @@ def main() -> int:
     for name in SYNC_KERNELS:
         check(launches[name] > 0, f"{name} was never launched on the main "
                                   f"path")
+    ops["unbatched"] = ksb.launches
 
     # 6. the batched main path (sweeps and the keyed store), with the
     # counters zeroed around it
     kernels.reset_launches()
+    ksb.launches = 0
     expect6 = Launches(check)
     timed("sweeps", sweep_phase, check, expect6, log, singles)
     del singles
@@ -5001,6 +5088,9 @@ def main() -> int:
     for name in SYNC_KERNELS:
         check(launches6[name] > 0, f"{name} was never launched on the "
                                    f"batched main path")
+    ops["batched"] = ksb.launches
+    check(ops["batched"] > 0, "slot_bump was never launched on the batched "
+                              "main path")
 
     # 7. the lex-pair main path (LWWMap, the merge entry points, the
     # quickstart) and the Retwis example, with the counters zeroed around
@@ -5008,6 +5098,7 @@ def main() -> int:
     # delta_extract and two lex_join_delta, the quickstart one
     # delta_extract, the Retwis example nothing
     kernels.reset_launches()
+    ksb.launches = 0
     expect3 = Launches(check)
     timed("lww", lww_phase, check, expect3, log)
     timed("lww_small", lww_small_phase, check, expect3, log)
@@ -5021,11 +5112,13 @@ def main() -> int:
         check(launches3[name] > 0, f"{name} was never launched on the "
                                    f"lex-pair main path")
         launches[name] = launches3[name]
+    ops["lex_pair"] = ksb.launches
 
     # 8. observability and the Scuttlebutt baseline (simulate, sweeps and
     # the store with telemetry= / provenance= / trace=), with the counters
     # zeroed around it
     kernels.reset_launches()
+    ksb.launches = 0
     expect8 = Launches(check)
     obs_trace = timed("obs", obs_phase, check, expect8, log)
     launches8 = kernels.launch_counts()
@@ -5034,8 +5127,10 @@ def main() -> int:
     for name in SYNC_KERNELS:
         check(launches8[name] > 0, f"{name} was never launched on the "
                                    f"observability path")
+    ops["observability"] = ksb.launches
     # 9 (c). padding and shards, with the counters zeroed around it
     kernels.reset_launches()
+    ksb.launches = 0
     expect9 = Launches(check)
     timed("shards", shard_phase, check, expect9, log, kept)
     del kept
@@ -5048,6 +5143,7 @@ def main() -> int:
     for name in ("round_step", "round_recv", "buffer_fold"):
         check(launches9[name] > 0, f"{name} was never launched on the "
                                    f"sharded path")
+    ops["sharded"] = ksb.launches
     timed("profile", profile_phase, check, log)
     launch_probe("after the profiles", log)
     # 13 (c): the dry-runs start on the CPU now, beside phases 11 and 12
@@ -5056,21 +5152,25 @@ def main() -> int:
         # 11. the model side's server (plain PyTorch): no kernel of the
         # eight is launched there (oracle iv)
         kernels.reset_launches()
+        ksb.launches = 0
         timed("serve", serve_phase, check, log, smi, dev)
-        served = kernels.launch_counts()
+        served = dict(kernels.launch_counts(), slot_bump=ksb.launches)
         check(not any(served.values()), f"the serving path launched "
                                         f"{served}")
         # 12. the model side's trainer (plain PyTorch): no kernel of the
         # eight is launched there either
         kernels.reset_launches()
+        ksb.launches = 0
         timed("train", train_phase, check, log, smi, dev)
-        trained = kernels.launch_counts()
+        trained = dict(kernels.launch_counts(), slot_bump=ksb.launches)
         check(not any(trained.values()), f"the training path launched "
                                          f"{trained}")
         # 13. the autotuner (its mega runs' launches: the tuned path), the
         # model side's meshes and the dry-run
+        ksb.launches = 0
         launches13 = timed("mesh", mesh_phase, check, log, smi, dev,
                            smoke_cache, dryruns)
+        ops["tuned"] = ksb.launches
     finally:
         stop_dryruns(dryruns)
 
@@ -5093,6 +5193,14 @@ def main() -> int:
         if name in store_shapes:
             row["store_shapes"] = store_shapes[name]
         rows.append(row)
+    _, ms, plain_ms, b_ms, b_by, lib_ms = sb_timing
+    rows.append({"name": "slot_bump", "route": "cuda",
+                 "source": "src/repro_torch/csrc/slot_bump.cu",
+                 "replaces": None, "launches": sum(ops.values()),
+                 "max_abs_err": sb_err, "equal": sb_err == 0, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_ms, "launches_by_path": ops,
+                 "store_shapes": sb_shapes})
     log["kernels"] = rows
     log["failed"] = check.failed
     out = REPO / "chiprun_out"

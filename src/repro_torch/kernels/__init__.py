@@ -1,5 +1,9 @@
 """The port's hand-written CUDA kernels (``csrc/``), each with its plain
-PyTorch version and a launch counter."""
+PyTorch version and a launch counter. :data:`KERNELS` holds the eight that
+replace the JAX package's Pallas kernels; ``slot_bump``, the Retwis op
+stream's kernel, replaces none and keeps its own counter
+(``slot_bump.launches``), which ``chip_smoke.py`` reads beside
+:func:`launch_counts`."""
 
 from repro_torch.kernels import (buffer_fold, delta_extract, digest_blocks,
                                  join, lex_join, masked_extract, round_recv,

@@ -31,7 +31,8 @@ from repro_torch.core.types import popcount32
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("buffer_fold", "delta_extract", "digest_blocks", "join",
-           "lex_join", "masked_extract", "round_recv", "round_step")
+           "lex_join", "masked_extract", "round_recv", "round_step",
+           "slot_bump")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,11 @@
-"""Same-call timing study of ``round_step`` and ``digest_blocks`` on the card.
+"""Same-call timing study of the port's kernels on the card.
 
 Two calls can land on two cards, so designs are compared inside one
 process. Run from the root of a checkout, on a machine with an sm_90 card:
 
     python3 src/repro_torch/kernels/study.py kernels [--baseline DIR]
     python3 src/repro_torch/kernels/study.py rounds [--root CHECKOUT]
+    python3 src/repro_torch/kernels/study.py slot_bump
 
 ``kernels`` times ``round_step`` under every plan of its ladder
 (:func:`round_step.plans`, the default first): at the scale shapes of
@@ -29,6 +30,20 @@ and bprr on ``fused``, on the mesh (12 + 8 rounds), and the GMap join at
 for ``digest_driven`` on ``mega`` and ``fused`` and ``state_driven`` on
 ``mega``: ms/round as the median, min and max of 5 runs after a one-round
 warm-up, with peak memory.
+
+``slot_bump`` times the versioned-slot kernel and its plain version (the
+seven PyTorch kernels it replaces) at the store's shapes, [30,000, 50, 64]
+and a card's block of the 786,432-object store, [196,608, 50, 64], with
+500 rows counted (1-3 bumps, a Retwis round's ops) and with every row
+counted, each checked equal and set beside its byte bound (the delta
+written, the counts read and the counted rows of x read, at 3.35 TB/s)
+and beside PyTorch's ``zero_`` of a tensor of the delta's size, the rate
+at which the card writes memory and nothing else. With 500 rows counted it
+also times a sparse δ in PyTorch, checked equal: ``zeros_like``, then the
+plain version on the counted rows alone, gathered and written back by
+index. ``sparse_ms`` takes the counted rows' indices as made before the
+call (as a table of them cut at set-up would give); ``sparse_nonzero_ms``
+finds them in the call, by ``nonzero``, which waits for the card.
 
 Kernel times are the median of 25 samples, each the CUDA-event time per
 call of 5 back-to-back calls behind one more call, as in ``chip_smoke.py``.
@@ -198,6 +213,71 @@ def kernels(baseline: Path | None):
          equal=ok, ms=time_ms(lambda: kd.digest_blocks(xd, block_elems=be)))
 
 
+HBM_BYTES_PER_S = 3.35e12
+
+
+def sparse_slot_bump(x, cnt, u, idx=None):
+    """The versioned-slot δ in PyTorch, written only where it is not ⊥:
+    zeros, and the plain version on the rows ``idx`` (those with a count
+    above 0; found by ``nonzero`` when None)."""
+    import torch
+
+    from repro_torch.kernels import slot_bump as ksb
+
+    flat = cnt.reshape(-1)
+    if idx is None:
+        idx = (flat > 0).nonzero().squeeze(1)
+    out = torch.zeros_like(x)
+    out.view(-1, u)[idx] = ksb.plain(x.view(-1, u)[idx], flat[idx], u)
+    return out
+
+
+def slot_bump():
+    import torch
+
+    from repro_torch.kernels import slot_bump as ksb
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    for b in (30_000, 196_608):
+        n, u = 50, 64
+        x = torch.randint(0, 13, (b, n, u), generator=g, device=dev,
+                          dtype=torch.int32)
+        rows = b * n
+        sparse = torch.zeros(rows, dtype=torch.int32, device=dev)
+        at = torch.randperm(rows, generator=g, device=dev)[:500]
+        sparse[at] = torch.randint(1, 4, (500,), generator=g, device=dev,
+                                   dtype=torch.int32)
+        for name, cnt in (("500 rows", sparse.view(b, n)),
+                          ("every row", torch.ones((b, n), dtype=torch.int32,
+                                                   device=dev))):
+            counted = int((cnt > 0).sum())
+            nbytes = (rows * u + rows + counted * u) * 4
+            ok = torch.equal(ksb.slot_bump(x, cnt, u), ksb.plain(x, cnt, u))
+            ms = time_ms(lambda: ksb.slot_bump(x, cnt, u))
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            sparse_ms = {}
+            if name == "500 rows":
+                idx = (cnt.reshape(-1) > 0).nonzero().squeeze(1)
+                ok &= torch.equal(sparse_slot_bump(x, cnt, u, idx),
+                                  ksb.slot_bump(x, cnt, u))
+                sparse_ms = dict(
+                    sparse_ms=time_ms(
+                        lambda: sparse_slot_bump(x, cnt, u, idx)),
+                    sparse_nonzero_ms=time_ms(
+                        lambda: sparse_slot_bump(x, cnt, u)))
+            emit(kernel="slot_bump", shape=f"[{b}, {n}, {u}]", counts=name,
+                 equal=ok, ms=ms, bound_ms=bound,
+                 pct_of_bound=100 * bound / ms,
+                 plain_ms=time_ms(lambda: ksb.plain(x, cnt, u)), **sparse_ms)
+        out = torch.empty_like(x)
+        emit(kernel="zero_", shape=f"[{b}, {n}, {u}]",
+             ms=time_ms(out.zero_),
+             bound_ms=rows * u * 4 / HBM_BYTES_PER_S * 1e3)
+        del x, sparse, out
+        torch.cuda.empty_cache()
+
+
 def rounds():
     import torch
 
@@ -266,7 +346,7 @@ def rounds():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("kernels", "rounds"))
+    ap.add_argument("what", choices=("kernels", "rounds", "slot_bump"))
     ap.add_argument("--baseline", type=Path, default=None,
                     help="directory of an earlier round_step.cu with the "
                          "long-row kernel's C interface (kernels)")
@@ -286,6 +366,8 @@ def main(argv=None) -> int:
     emit(root=str(root), card=card())
     if a.what == "kernels":
         kernels(a.baseline.resolve() if a.baseline else None)
+    elif a.what == "slot_bump":
+        slot_bump()
     else:
         rounds()
     return 0

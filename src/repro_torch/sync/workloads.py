@@ -28,6 +28,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.slot_bump import slot_bump
 from repro_torch.sync.scuttlebutt import DeltaCodec
 
 # Retwis byte sizes (paper §V-D): tweet ids, tweet content, node/user ids.
@@ -346,15 +347,6 @@ def retwis_weights(objects: int) -> np.ndarray:
         np.arange(objects) % 3]
 
 
-def _slot_bumps(x, cnt, slots: int, cols):
-    """The versioned-slot op: ``cnt`` slots bumped past the object's
-    current version, starting at a rotating index derived from it."""
-    ver = x.amax(-1, keepdim=True)
-    idx = ver % slots
-    sel = (cols - idx) % slots < cnt[..., None]
-    return torch.where(sel, x + 1, 0).to(x.dtype)
-
-
 def versioned_slot_op(counts: np.ndarray, slots: int) -> Callable:
     """Store op stream over versioned-slot objects (the Retwis model: each
     object is a ``MapLattice(slots, max_int)``).
@@ -363,13 +355,15 @@ def versioned_slot_op(counts: np.ndarray, slots: int) -> Callable:
     node bumps ``cnt`` slots of the object starting at a rotating index
     derived from the object's current version, so concurrent updates from
     different nodes hit overlapping slots — the contention of the paper's
-    Zipf workload. Returns an op_fn over stacked states [B, N, slots]; the
-    count table goes to a device once, as [T, B, N], at the op's first call
-    there. Its ``for_block(lo, hi)`` is the op stream of objects [lo, hi)
-    alone: a sharded store (``simulate_store(shard=True)``) runs it on each
-    device's block; each block's op is built once and cuts its own [T, hi
-    - lo, N] table straight from ``counts`` at its first call, so a sharded
-    run never makes the whole store's table. ``counts`` (int32 is kept
+    Zipf workload. Returns an op_fn over stacked states [B, N, slots]
+    (:func:`repro_torch.kernels.slot_bump.slot_bump`: one kernel launch a
+    round on a card); the count table goes to a device once, as [T, B, N],
+    at the op's first call there. Its ``for_block(lo, hi)`` is the op
+    stream of objects [lo, hi) alone: a sharded store
+    (``simulate_store(shard=True)``) runs it on each device's block; each
+    block's op is built once and cuts its own [T, hi - lo, N] table
+    straight from ``counts`` at its first call, so a sharded run never
+    makes the whole store's table. ``counts`` (int32 is kept
     without a copy) is read when a table is made: leave it unchanged."""
     counts = np.asarray(counts, np.int32)
     op_fn = _slot_op(counts, 0, counts.shape[2], slots)
@@ -397,16 +391,14 @@ def _count_table(counts: np.ndarray, lo: int, hi: int) -> np.ndarray:
 
 def _slot_op(counts: np.ndarray, lo: int, hi: int, slots: int) -> Callable:
     """:func:`versioned_slot_op` over objects [lo, hi) of ``counts``."""
-    tables = _per_device(lambda dev: (
-        torch.as_tensor(_count_table(counts, lo, hi), device=dev),
-        torch.arange(slots, dtype=torch.int32, device=dev)))
+    tables = _per_device(lambda dev: torch.as_tensor(
+        _count_table(counts, lo, hi), device=dev))
 
     def op_fn(x, t):
         if x.shape[0] != hi - lo:
             raise ValueError(f"count table built for {hi - lo} objects "
                              f"cannot serve {x.shape[0]} object rows")
-        tab, cols = tables(x.device)
-        return _slot_bumps(x, tab[t], slots, cols)
+        return slot_bump(x, tables(x.device)[t], slots)
 
     return op_fn
 
@@ -416,12 +408,9 @@ def versioned_slot_cell_op(counts: np.ndarray, obj: int,
     """Single-object :func:`versioned_slot_op` of object ``obj``: an op_fn
     over [N, slots] states for a per-object ``simulate`` run."""
     upd = np.ascontiguousarray(np.asarray(counts, np.int32)[:, :, obj])
-    tables = _per_device(lambda dev: (
-        torch.as_tensor(upd, device=dev),
-        torch.arange(slots, dtype=torch.int32, device=dev)))
+    tables = _per_device(lambda dev: torch.as_tensor(upd, device=dev))
 
     def op_fn(x, t):
-        tab, cols = tables(x.device)
-        return _slot_bumps(x, tab[t], slots, cols)
+        return slot_bump(x, tables(x.device)[t], slots)
 
     return op_fn

@@ -25,8 +25,10 @@ from repro_torch.kernels import masked_extract as kext
 from repro_torch.kernels import ops
 from repro_torch.kernels import round_recv as krecv
 from repro_torch.kernels import round_step as kstep
+from repro_torch.kernels import slot_bump as ksb
 from repro_torch.sync import (ENGINES, DigestSpec, FaultSchedule, simulate,
                               topology, workloads)
+from test_torch_slot_bump import slot_rows
 
 KINDS = {"max_i32": ("max", np.int32), "max_bool": ("max", np.bool_),
          "bitor_u32": ("bitor", np.uint32)}
@@ -656,6 +658,74 @@ def test_path_kernels_take_batch_axes(sm90, kind_name, rng):
         assert_equal(g, w, f"round_step {nm}")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("lead", [(300, 16), (4099,)], ids=["BN", "N"])
+@pytest.mark.parametrize("u", [1, 3, 8, 32, 64, 100])
+def test_slot_bump_kernel_vs_plain(sm90, u, lead, offset, rng):
+    """The versioned-slot kernel equals its plain version bit for bit, on
+    the vector path (U = 32, 64 on aligned bases) and the row path (U = 1,
+    3, 8, 100, and x one element off a 16-byte boundary), one launch a
+    call."""
+    x, cnt = slot_rows(rng, lead, u)
+    xc, xd = both(x, sm90)
+    cc, cd = both(cnt, sm90)
+    n0 = ksb.launches
+    got = ksb.slot_bump(offset_view(xd, offset), cd, u)
+    torch.cuda.synchronize()
+    assert ksb.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got.cpu(), ksb.plain(xc, cc, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u", [3, 32, 64])
+def test_slot_bump_grid_strides(sm90, u, rng, monkeypatch):
+    """With the grid capped at one block (8 warps, 256 rows a sweep),
+    its warps walk 5,001 rows, equal to the plain version."""
+    monkeypatch.setattr(ksb, "MAX_BLOCKS", 1)
+    x, cnt = slot_rows(rng, (5001,), u)
+    xc, xd = both(x, sm90)
+    cc, cd = both(cnt, sm90)
+    got = ksb.slot_bump(xd, cd, u)
+    assert torch.equal(got.cpu(), ksb.plain(xc, cc, u))
+
+
+@pytest.mark.cuda
+def test_slot_bump_refuses_what_the_kernel_does_not_take(sm90):
+    x = torch.zeros((6, 5, 8), dtype=torch.int32, device=sm90)
+    cnt = torch.ones((6, 5), dtype=torch.int32, device=sm90)
+    n0 = ksb.launches
+    for bad_x, bad_cnt, slots, err in (
+            (x.transpose(0, 1), cnt.T, 8, ValueError),      # non-contiguous
+            (x.long(), cnt, 8, TypeError),
+            (x, cnt.long(), 8, TypeError),
+            (x, cnt[:, :4], 8, ValueError),
+            (x, cnt, 4, ValueError),
+            (x, cnt.cpu(), 8, ValueError)):
+        with pytest.raises(err):
+            ksb.slot_bump(bad_x, bad_cnt, slots)
+    assert ksb.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_store_op_stream_launches_once_a_round_a_block(sm90, blocks):
+    """A Retwis store on the card runs its op stream through the kernel:
+    one launch a block for its check at set-up and one a block for each
+    active round, none in the quiet rounds; equal to the CPU run."""
+    from repro_torch.sync import simulate_store
+
+    lat, topo, spec = retwis_store()
+    want = simulate_store("bprr", lat, topo, spec, 6, 4, device="cpu")
+    n0 = ksb.launches
+    got = simulate_store("bprr", lat, topo, spec, 6, 4, engine="mega",
+                         shard=True, device=["cuda:0"] * blocks)
+    assert ksb.launches - n0 == blocks * (6 + 1)
+    assert torch.equal(got.final_x.cpu(), want.final_x)
+    np.testing.assert_array_equal(got.tx, want.tx)
+
+
 def retwis_store(objects=40, nodes=16, slots=32, rounds=6, ops=6):
     from repro_torch.core import MapLattice
     from repro_torch.core import value_lattices as vl
@@ -1254,7 +1324,8 @@ def test_one_rank_mesh_train_step_equals_the_plain_one(sm90, arch):
         dist.destroy_process_group()
 
 
-def retwis_store(seed, objects=3000, nodes=16, slots=16, rounds=12):
+def retwis_store_args(seed, objects=3000, nodes=16, slots=16,
+                      rounds=12):
     """A small Retwis store run's arguments, op stream drawn from ``seed``."""
     from repro_torch.core import MapLattice
     from repro_torch.core import value_lattices as vl
@@ -1285,13 +1356,14 @@ def test_store_results_reach_pinned_memory_once(sm90):
         return [getattr(res, f) for f in fields]
 
     def run(seed, trace=None):
-        return simulate_store(*retwis_store(seed), engine="mega",
+        return simulate_store(*retwis_store_args(seed), engine="mega",
                               trace=trace, device=sm90)
 
     def two_kept():
         # a function of its own, so that no name outlives the two results
         first = run(1)
-        want = simulate_store(*retwis_store(1), engine="mega", device="cpu")
+        want = simulate_store(*retwis_store_args(1), engine="mega",
+                              device="cpu")
         for f, a, b in zip(fields, arrays(first), arrays(want)):
             assert a.dtype == b.dtype and a.shape == b.shape, f
             np.testing.assert_array_equal(a, b, err_msg=f)
