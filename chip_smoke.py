@@ -182,18 +182,14 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    (qwen3-100m, 200 steps, batch 8, seq 256, checkpoints every 50; the
    loss must fall), its step-100 bundle resumed to 200 against the
    uninterrupted run within 2e-2;
-13. the autotuner, the model side's meshes and the dry-run, with the
-   autotune cache pointed at an empty file of the smoke's own from the
-   start (every earlier phase runs the default plans): (a) every plan of
-   ``round_step.plans`` at the scale phase's GMap 4,194,304 bprr round
-   (mesh15d4, K = P + 1, per-origin) and at the store's [30,000, 50, 64]
-   and [1,048,576, 16, 32] bprr rounds (the short-row kernel's plans)
-   against the plain version exactly; ``ops.
-   sync_round_block`` tuning into a fresh file (each candidate's ms by
-   CUDA events, the winner beside the default plan and the byte bound),
-   then resolving from it (source "cache"); a mega GMap 4M bprr run (12 +
-   8 rounds) under the tuned plan equal to the default plan's run, its
-   launches counted as the "tuned" path; (b) a one-rank NCCL group and a
+13. round_step's plans, the model side's meshes and the dry-run: (a)
+   every plan of ``round_step.plans`` at the scale phase's GMap 4,194,304
+   bprr round (mesh15d4, K = P + 1, per-origin) and at the store's
+   [30,000, 50, 64] and [1,048,576, 16, 32] bprr rounds (the short-row
+   kernel's plans) against the plain version exactly, each plan's ms by
+   CUDA events beside the default plan (``round_step.plan``'s, the one
+   every other phase runs) and the byte bound, in the log's ``plans``;
+   (b) a one-rank NCCL group and a
    (1, 1) mesh on the card: qwen3-0.6b whole in float32, weights from seed
    0 placed by ``param_specs`` / ``to_named``, one train step (batch 2 ×
    512) with hints and ``grad_specs`` equal to the plain step (loss, every
@@ -4463,17 +4459,12 @@ def train_phase(check, log, smi, dev):
     log["train"] = out
 
 
-# -- phase 13: the autotuner, the model side's meshes, the dry-run ------------
+# -- phase 13: round_step's plans, the model side's meshes, the dry-run --------
 
-# The smoke's own autotune cache (empty: every phase keeps the default
-# plans), never a user's under ~/.cache; phase 13 (a) tunes into files of
-# its own beside it.
-TUNE_DIR = REPO / "build" / "chip_smoke_autotune"
 # (a) round_step's plans at the scale phase's GMap 4M bprr round (mesh15d4,
 # K = P + 1, per-origin) and at the store's shapes: the Retwis paper
-# setting (mesh50 d4) and a million objects (mesh16 d4; tuned only: no
-# mega run)
-TUNE_SHAPES = (("GMap 4,194,304 bprr mesh15d4", 1, 15, SCALE_KEYS),
+# setting (mesh50 d4) and a million objects (mesh16 d4)
+PLAN_SHAPES = (("GMap 4,194,304 bprr mesh15d4", 1, 15, SCALE_KEYS),
                ("Retwis [30,000, 50, 64] bprr", 30_000, 50, 64),
                ("Retwis [1,048,576, 16, 32] bprr", 1 << 20, 16, 32))
 # (b) qwen3-0.6b whole on a one-rank NCCL group's (1, 1) mesh, float32
@@ -4511,17 +4502,6 @@ DRYRUN_CELLS = (
 )
 
 
-def own_tune_cache():
-    """Point the autotuner at an empty cache file of the smoke's own, in
-    cache mode (``REPRO_AUTOTUNE`` cleared)."""
-    TUNE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TUNE_DIR / "smoke.json"
-    path.write_text("{}")
-    os.environ["REPRO_AUTOTUNE_CACHE"] = str(path)
-    os.environ["REPRO_AUTOTUNE"] = ""
-    return path
-
-
 def round_operands(g, b, n, u, dev):
     """One bprr round's operands of ``b`` configs on partial_mesh(n, 4)."""
     import torch
@@ -4555,145 +4535,47 @@ def plan_name(pl) -> str:
     return f"tile {pl.tile} vec {pl.vec_bytes} stages {pl.stages}"
 
 
-def tune_phase(check, log, smi, dev, smoke_cache):
+def plans_phase(check, log, smi, dev):
     """(a) every plan of ``round_step.plans`` at the three shapes launched
     and held to the plain version exactly (at the store shapes the
-    short-row kernel's: configs a block, direct or staged loads);
-    ``ops.sync_round_block`` tuning into a fresh file (each candidate's ms
-    by CUDA events), then resolving from it ("cache"); a mega GMap 4M bprr
-    run under the tuned plan against the default plan's, bit for bit. The
-    memo is cleared and the smoke's empty cache restored after; the same
-    for the Retwis paper store's mega run at the store shape's winner.
-    Returns the mega runs' launches."""
+    short-row kernel's: configs a block, direct or staged loads), each
+    timed by CUDA events beside the default (:func:`round_step.plan`'s)
+    and the byte bound."""
     import torch
 
-    from repro_torch import kernels
-    from repro_torch.core import GMap
-    from repro_torch.kernels import common, ops
     from repro_torch.kernels import round_step as ks
-    from repro_torch.sync import simulate, simulate_store, topology
-    from repro_torch.sync import workloads as W
 
     g = torch.Generator(device=dev).manual_seed(13)
     kw = ("max", True, True, False)         # kind, per_origin, extracts, inbox
-    out, winners = [], {}
-    for i, (tag, b, n, u) in enumerate(TUNE_SHAPES):
+    out = []
+    for tag, b, n, u in PLAN_SHAPES:
         args, p, k = round_operands(g, b, n, u, dev)
         want = ks.plain(*args, *kw)
         cands = ks.plans(n, p, k, True, 4, u, True)
         for pl in cands:
             check(same_outputs(ks._launch(*args, *kw, pl=pl), want),
-                  f"tune {tag}: plan {pl} differs from the plain version")
+                  f"plans {tag}: plan {pl} differs from the plain version")
         del want
-        path = TUNE_DIR / f"tune{i}.json"
-        path.unlink(missing_ok=True)
-        os.environ.update(REPRO_AUTOTUNE_CACHE=str(path), REPRO_AUTOTUNE="1")
-        common._TUNE_MEM.clear()
-
-        def bench(pl, args=args):
-            for _ in range(ks.BENCH_LAUNCHES):
-                ks._kernel(*args, *kw, pl)
-
-        blk = dict(p=p, k=k, per_origin=True, kind="max", elem_size=4,
-                   aligned=True, device=dev)
-        win, src = ops.sync_round_block(b, n, u, tune_bench=bench, **blk)
-        check(src == "tuned", f"tune {tag}: resolved {src}, not tuned")
-        (entry,) = json.loads(path.read_text()).values()
-        ms = {tuple(json.loads(c)): t / ks.BENCH_LAUNCHES * 1e3
-              for c, t in entry["timings_s"].items()}
-        check(len(ms) == len(cands), f"tune {tag}: {len(ms)} of "
-                                     f"{len(cands)} candidates timed")
-        os.environ["REPRO_AUTOTUNE"] = ""
-        common._TUNE_MEM.clear()
-        again = ops.sync_round_block(b, n, u, **blk)
-        check(again == (win, "cache"), f"tune {tag}: the second resolution "
-                                       f"gave {again}, not ({win}, cache)")
+        ms = {pl: time_ms(lambda pl=pl: ks._kernel(*args, *kw, pl))
+              for pl in cands}
         default = cands[0]
-        check(ms[tuple(win)] <= ms[tuple(default)],
-              f"tune {tag}: the winner is slower than the default")
         plane = b * n * u * 4
         b_ms, b_by = bound((2 * k + 3) * plane,
                            (2 + 3 * k + 6 * p + 1) * b * n * u)
-        row = {"shape": tag, "configs": b, "nodes": n, "columns": u,
-               "candidates": [dict(pl._asdict(), ms=ms[tuple(pl)])
-                              for pl in cands],
-               "winner": dict(win._asdict(), ms=ms[tuple(win)]),
-               "default_ms": ms[tuple(default)], "bound_ms": b_ms,
-               "bound_by": b_by, "nvidia_smi": smi}
-        out.append(row)
-        winners[tag] = (win, path)
-        print(f"tune {tag}: " + "; ".join(
-            f"{plan_name(pl)}: {ms[tuple(pl)]:.3f} ms" for pl in cands),
+        out.append({"shape": tag, "configs": b, "nodes": n, "columns": u,
+                    "plans": [dict(pl._asdict(), ms=ms[pl]) for pl in cands],
+                    "default_ms": ms[default], "bound_ms": b_ms,
+                    "bound_by": b_by, "nvidia_smi": smi})
+        print(f"plans {tag}: " + "; ".join(
+            f"{plan_name(pl)}: {ms[pl]:.3f} ms" for pl in cands),
             flush=True)
-        print(f"tune {tag}: winner {plan_name(win)} {ms[tuple(win)]:.3f} "
-              f"ms, default "
-              f"{ms[tuple(default)]:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
-              f"resolved again from the cache [{smi}]", flush=True)
+        print(f"plans {tag}: default {plan_name(default)} "
+              f"{ms[default]:.3f} ms, fastest "
+              f"{min(ms.values()):.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
+              f"[{smi}]", flush=True)
         del args
         torch.cuda.empty_cache()
-
-    # the mega GMap 4M bprr run, and the Retwis paper store's bprr mega
-    # run, under the tuned plan and under the default
-    nodes, objects, slots, active, quiet, ops_n = RETWIS_PAPER
-    lat, spec, _ = retwis_store(1.0, nodes, objects, slots, active, ops_n)
-    gmap = W.gmap_block_op(15, SCALE_KEYS, 10)
-    workloads = (
-        (TUNE_SHAPES[0][0], 20, 1, lambda: simulate(
-            "bprr", GMap(SCALE_KEYS).lattice, topology.partial_mesh(15, 4),
-            gmap, 12, 8, engine="mega")),
-        (TUNE_SHAPES[1][0], active + quiet, objects, lambda: simulate_store(
-            "bprr", lat, topology.partial_mesh(nodes, 4), spec, active,
-            quiet, engine="mega")))
-    kernels.reset_launches()
-    want = {k: 0 for k in SOURCES}
-    for (tag, _, n, u), (_, rounds, configs, run) in zip(TUNE_SHAPES,
-                                                           workloads):
-        win, path = winners[tag]
-        default = ks.plans(n, 4, 5, True, 4, u, True)[0]
-        kept, ms = {}, {"tuned": [], "default": []}
-        # a warm-up, then default, tuned, tuned, default: each plan timed
-        # twice, in turns; one result of each kept for the equality check
-        order = ("default", "default", "tuned", "tuned", "default")
-        for i, name in enumerate(order):
-            cache, want_plan = (path, win) if name == "tuned" \
-                else (smoke_cache, default)
-            os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
-            common._TUNE_MEM.clear()
-            gc.collect()
-            sync(dev)
-            t0 = time.perf_counter()
-            r = run()
-            sync(dev)
-            if i:                          # the first is the warm-up
-                ms[name].append((time.perf_counter() - t0) * 1e3 / rounds)
-            kept.setdefault(name, r)
-            del r
-            check(ks.last_launch[0] == want_plan,
-                  f"tune {tag}: the {name} mega run launched "
-                  f"{ks.last_launch[0]}")
-            for k, v in expected_launches("mega", "bprr", rounds,
-                                          configs).items():
-                want[k] += v
-        check(same_run(kept["tuned"], kept["default"]),
-              f"tune {tag}: the tuned plan's mega run differs from the "
-              f"default plan's")
-        row = next(r for r in out if r["shape"] == tag)
-        row["mega_ms_per_round"] = dict(ms, rounds=rounds)
-        print(f"tune {tag}: mega run ({rounds} rounds) under "
-              f"{plan_name(win)} equal to the default plan's; ms/round tuned "
-              f"{', '.join(f'{t:.3f}' for t in ms['tuned'])}, default "
-              f"{', '.join(f'{t:.3f}' for t in ms['default'])} (after a "
-              f"warm-up run, in turns) [{smi}]", flush=True)
-        del kept
-        gc.collect()
-        torch.cuda.empty_cache()
-    launched = kernels.launch_counts()
-    check(launched == want, f"tune: mega runs launched {launched}, expected "
-                            f"{want}")
-    os.environ["REPRO_AUTOTUNE_CACHE"] = str(smoke_cache)
-    common._TUNE_MEM.clear()
-    log["autotune"] = out
-    return launched
+    log["plans"] = out
 
 
 def free_port() -> int:
@@ -4903,13 +4785,12 @@ def stop_dryruns(procs):
             proc.wait()
 
 
-def mesh_phase(check, log, smi, dev, smoke_cache, dryruns):
+def mesh_phase(check, log, smi, dev, dryruns):
     """Phase 13: (a) and (b) on the card, then (c)'s dry-runs (started
-    before phase 11) awaited. Returns (a)'s mega runs' launches."""
-    launched = tune_phase(check, log, smi, dev, smoke_cache)
+    before phase 11) awaited."""
+    plans_phase(check, log, smi, dev)
     sharded_phase(check, log, smi, dev)
     finish_dryruns(check, log, dryruns)
-    return launched
 
 
 # -- driver ----------------------------------------------------------------------
@@ -4948,7 +4829,6 @@ def cards_main() -> int:
     from repro_torch.kernels import _build
 
     check = Checks()
-    own_tune_cache()
     smi = nvidia_smi()
     print(f"cards: {torch.cuda.device_count()}\n{smi}", flush=True)
     if torch.cuda.device_count() < 2:
@@ -4994,7 +4874,6 @@ def main() -> int:
     global INT_OPS_PER_S
     check = Checks()
     dev = torch.device("cuda")
-    smoke_cache = own_tune_cache()
     smi = nvidia_smi()
     log = {"torch": torch.__version__, "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
@@ -5165,12 +5044,8 @@ def main() -> int:
         trained = dict(kernels.launch_counts(), slot_bump=ksb.launches)
         check(not any(trained.values()), f"the training path launched "
                                          f"{trained}")
-        # 13. the autotuner (its mega runs' launches: the tuned path), the
-        # model side's meshes and the dry-run
-        ksb.launches = 0
-        launches13 = timed("mesh", mesh_phase, check, log, smi, dev,
-                           smoke_cache, dryruns)
-        ops["tuned"] = ksb.launches
+        # 13. round_step's plans, the model side's meshes and the dry-run
+        timed("mesh", mesh_phase, check, log, smi, dev, dryruns)
     finally:
         stop_dryruns(dryruns)
 
@@ -5181,15 +5056,14 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": launches[name] + launches6[name]
-               + launches8[name] + launches9[name] + launches13[name],
+               + launches8[name] + launches9[name],
                "max_abs_err": err, "equal": err == 0, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms,
                "launches_by_path": {"unbatched": launches[name],
                                     "batched": launches6[name],
                                     "observability": launches8[name],
-                                    "sharded": launches9[name],
-                                    "tuned": launches13[name]}}
+                                    "sharded": launches9[name]}}
         if name in store_shapes:
             row["store_shapes"] = store_shapes[name]
         rows.append(row)

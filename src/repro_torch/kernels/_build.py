@@ -1,12 +1,10 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-With ``kernels.common`` (the autotuner), the counterpart of
-``repro.kernels.common``. Each
-``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, at first use, into ``build/repro_torch/``
-at the root of the checkout. The file name carries a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once. All
-stale sources compile in parallel, one ``nvcc`` each.
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into
+``build/repro_torch/`` at the root of the checkout. The file name carries a
+hash of the sources and flags, so an edited source rebuilds and an unchanged
+one loads at once. All stale sources compile in parallel, one ``nvcc`` each.
 
 Besides the build, this module holds what the kernel wrappers share:
 the element kinds a kernel takes, the checks made before a launch, and the

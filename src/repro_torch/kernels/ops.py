@@ -6,12 +6,8 @@ flags the engines pass and change layouts only where a caller's differs.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
-from repro_torch.kernels import common
-from repro_torch.kernels import round_step as _rs
 from repro_torch.kernels.buffer_fold import buffer_fold
 from repro_torch.kernels.delta_extract import delta_extract
 from repro_torch.kernels.digest_blocks import digest_blocks
@@ -23,36 +19,7 @@ from repro_torch.kernels.round_step import round_step
 
 __all__ = ["buffer_fold", "delta_extract", "digest_blocks", "join",
            "lex_join_delta", "masked_extract", "pack_bits", "round_recv",
-           "sync_round", "sync_round_block", "unpack_bits"]
-
-
-def sync_round_block(b: int, n: int, u: int, *, p: int, k: int,
-                     per_origin: bool, kind: str = "max", elem_size: int = 4,
-                     aligned: bool = True, device="cuda", tune_bench=None):
-    """Resolve ``round_step``'s launch plan for these shapes — autotuned
-    (``common.tuned_block``) among ``round_step.plans``, whose first,
-    ``round_step.plan``, is the default.
-
-    ``b``: configs, ``n``: nodes, ``u``: columns, ``p``: degree, ``k``:
-    buffer slots (0 = state-based), ``elem_size``: bytes an element,
-    ``aligned``: every operand 16-byte aligned; ``device`` names the card
-    the key is for. ``tune_bench(plan)`` launches the kernel under a
-    candidate (only called with ``REPRO_AUTOTUNE=1`` on a cache miss, and
-    timed with CUDA events). Returns ``(Plan, source)``.
-    """
-    cands = _rs.plans(n, p, k, bool(per_origin), elem_size, u, bool(aligned))
-    key = (common.backend_key(device), kind, f"p{p}", f"k{k}",
-           f"po{int(bool(per_origin))}", f"n{n}",
-           f"b{common.shape_bucket(b)}", f"u{common.shape_bucket(u)}",
-           f"e{elem_size}", f"a{int(bool(aligned))}")
-    timer = common.event_timer(device) \
-        if tune_bench is not None and torch.device(device).type == "cuda" \
-        else time.perf_counter
-    bench = None if tune_bench is None \
-        else (lambda cand: tune_bench(_rs.Plan(*cand)))
-    cfg, source = common.tuned_block("round_step", key, cands, bench,
-                                     timer=timer)
-    return _rs.Plan(*cfg), source
+           "sync_round", "unpack_bits"]
 
 
 def sync_round(delta, x, buf, active, delivered, *, nbrs, rev,

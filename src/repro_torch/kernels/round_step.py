@@ -38,7 +38,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build as B
-from repro_torch.kernels import common
 from repro_torch.kernels.buffer_fold import plain as fold_plain
 
 launches = 0            # kernel launches since the last reset (CUDA only)
@@ -53,7 +52,6 @@ VEC_BYTES = (16, 8, 4)  # int32 lanes' bytes, widest first (uint8: 4)
 STAGES = (3, 2)         # bulk plans' ring stages, most first
 SHORT_VECS = 32         # rows of at most this many lane vectors: short rows
 MAX_BLOCKS = 1 << 20    # short rows' grid cap; its blocks walk beyond it
-BENCH_LAUNCHES = 5      # back-to-back launches a timed tuning sample
 
 _SIGNATURE = {
     "round_step_launch": [ctypes.c_int] + [ctypes.c_void_p] * 14
@@ -182,10 +180,11 @@ def long_plans(n: int, p: int, k: int, per_origin: bool, elem_size: int,
 def plans(n: int, p: int, k: int, per_origin: bool, elem_size: int, u: int,
           aligned: bool) -> tuple:
     """Every plan on the ladder :func:`plan` walks, in its order, so the
-    first is :func:`plan`'s (the default the autotuner must beat). Each
+    first is :func:`plan`'s, the one a launch without ``pl`` runs. Each
     computes the same round: the short-row kernel's plans where the row is
     short (:func:`short_plans`), else the long-row kernel's
-    (:func:`long_plans`)."""
+    (:func:`long_plans`); the rest are there to be checked and timed
+    against it."""
     return short_plans(n, p, k, per_origin, elem_size, u, aligned) or \
         long_plans(n, p, k, per_origin, elem_size, u, aligned)
 
@@ -306,28 +305,18 @@ def _kernel(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
 
 def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
             extracts, emit_inbox, pl=None):
-    """Launch the kernel under ``pl``, or, given none, under the plan
-    ``ops.sync_round_block`` resolves (autotuned; with ``REPRO_AUTOTUNE=1``
-    a cache miss times every candidate on these operands first)."""
+    """Launch the kernel under ``pl``, or, given none, under :func:`plan`
+    of the operands' shape and alignment."""
     global launches, last_launch
     B.check_cuda("round_step", delta, x, buf, active, delivered, nbrs, rev)
-    args = (delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
-            extracts, emit_inbox)
     if pl is None:
-        from repro_torch.kernels import ops
-        nb, n, u = x.shape
-        bench = None
-        if common.autotune_mode() == "tune":
-            def bench(cand):
-                for _ in range(BENCH_LAUNCHES):
-                    _kernel(*args, cand)
-        pl, _ = ops.sync_round_block(
-            nb, n, u, p=nbrs.shape[-1], k=0 if buf is None else buf.shape[0],
-            per_origin=per_origin, kind=kind, elem_size=x.element_size(),
-            aligned=all(t is None or t.data_ptr() % 16 == 0
-                        for t in (delta, x, buf)),
-            device=x.device, tune_bench=bench)
-    out, blocks = _kernel(*args, pl)
+        pl = plan(x.shape[1], nbrs.shape[-1],
+                  0 if buf is None else buf.shape[0], per_origin,
+                  x.element_size(), x.shape[2],
+                  all(t is None or t.data_ptr() % 16 == 0
+                      for t in (delta, x, buf)))
+    out, blocks = _kernel(delta, x, buf, active, delivered, nbrs, rev, kind,
+                          per_origin, extracts, emit_inbox, pl)
     launches += launches_for(x.shape[0], pl)
     last_launch = (pl, blocks)
     return out

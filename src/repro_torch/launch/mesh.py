@@ -150,16 +150,9 @@ def sweep_mesh(num_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh(_take(device, num_devices), SWEEP_AXIS)
 
 
-def store_mesh(num_devices: Optional[int] = None, config_devices: int = 1,
-               device="cuda") -> Mesh:
+def store_mesh(num_devices: Optional[int] = None, device="cuda") -> Mesh:
     """1-D mesh over the object axis of the keyed store: each device runs
-    its own block of objects. ``config_devices`` is the JAX mesh's second
-    axis, for config-batched store runs, which the port does not have: it
-    must be 1."""
-    if config_devices != 1:
-        raise ValueError(f"config_devices={config_devices}: the port's "
-                         f"store runs one config, so the store mesh has "
-                         f"the object axis alone (config_devices=1)")
+    its own block of objects."""
     return Mesh(_take(device, num_devices), STORE_AXIS)
 
 

@@ -18,10 +18,7 @@ the sweep engine's config axis batches, here with **B = objects**:
 * metrics come back per object ([B, T]) with store-level aggregates and
   weighted accounting: per-object byte weights (Retwis's 20 B user ids,
   301 B wall entries, 39 B timeline entries) turn element counts into
-  bytes (``StoreResult.*_bytes``, float64 from the same integers);
-* ``layout`` is the JAX package's kernel tiling of the object axis ("rows",
-  the default, or "grid"). It is checked and otherwise ignored: the port's
-  kernels take the (object, node) rows as one row axis, which is "rows".
+  bytes (``StoreResult.*_bytes``, float64 from the same integers).
 
 Scale knobs, all bit-identical to the plain run:
 
@@ -484,7 +481,6 @@ def simulate_store(
     track_convergence: Optional[bool] = None,
     shard: bool = False,
     digest: Optional[DigestSpec] = None,
-    layout: str = "rows",
     chunk_rounds: Optional[int] = None,
     checkpoint: Union[Checkpointer, str, Path, None] = None,
     object_metrics: bool = True,
@@ -501,18 +497,17 @@ def simulate_store(
     ``res.object_result(b)`` is bit-identical to the single run of object
     b's op stream and initial state, under the store-shared fault
     schedule, on any ``engine``. ``track_convergence`` defaults on exactly
-    when a fault schedule is given. ``layout``, the scale knobs
-    (``chunk_rounds``, ``checkpoint``, ``object_metrics``) and the
-    observability (``telemetry``, ``provenance``, ``trace``), ``shard``
-    and ``pad_to`` are described in the module docstring. With ``shard``,
-    ``device`` may be a list of devices; the final states are gathered on
-    the first.
+    when a fault schedule is given. The scale knobs (``chunk_rounds``,
+    ``checkpoint``, ``object_metrics``), the observability (``telemetry``,
+    ``provenance``, ``trace``), ``shard`` and ``pad_to`` are described in
+    the module docstring. With ``shard``, ``device`` may be a list of
+    devices; the final states are gathered on the first.
     """
     return _simulate_store(
         algo, lattice, topo, spec, active_rounds, quiet_rounds, loo=loo,
         engine=engine, wide_metrics=wide_metrics,
         track_convergence=track_convergence, shard=shard, digest=digest,
-        layout=layout, chunk_rounds=chunk_rounds, checkpoint=checkpoint,
+        chunk_rounds=chunk_rounds, checkpoint=checkpoint,
         object_metrics=object_metrics, pad_to=pad_to, telemetry=telemetry,
         provenance=provenance, trace=trace, device=device, resume=None)
 
@@ -534,7 +529,6 @@ def resume_store(
     track_convergence: Optional[bool] = None,
     shard: bool = False,
     digest: Optional[DigestSpec] = None,
-    layout: str = "rows",
     object_metrics: bool = True,
     pad_to: Optional[int] = None,
     telemetry=None,
@@ -570,7 +564,7 @@ def resume_store(
         algo, lattice, topo, spec, active_rounds, quiet_rounds, loo=loo,
         engine=engine, wide_metrics=wide_metrics,
         track_convergence=track_convergence, shard=shard, digest=digest,
-        layout=layout, chunk_rounds=chunk_rounds, checkpoint=ckpt,
+        chunk_rounds=chunk_rounds, checkpoint=ckpt,
         object_metrics=object_metrics, pad_to=pad_to, telemetry=telemetry,
         provenance=provenance, trace=trace, device=device,
         resume=(ckpt, step, extra))
@@ -578,7 +572,7 @@ def resume_store(
 
 def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
                     *, loo, engine, wide_metrics, track_convergence, shard,
-                    digest, layout, chunk_rounds, checkpoint, object_metrics,
+                    digest, chunk_rounds, checkpoint, object_metrics,
                     pad_to, telemetry, provenance, trace, device,
                     resume) -> StoreResult:
     check_obs(telemetry, provenance)
@@ -587,9 +581,6 @@ def _simulate_store(algo, lattice, topo, spec, active_rounds, quiet_rounds,
             "provenance= requires object_metrics=True: lineage matrices "
             "are per-object [B, N, E] views and cannot be reduced to one "
             "partial in the loop")
-    if layout not in ("grid", "rows"):
-        raise ValueError(f"unknown layout {layout!r}; one of "
-                         f"('grid', 'rows')")
     if chunk_rounds is not None and chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
     ckpt = _as_checkpointer(checkpoint)

@@ -1170,7 +1170,7 @@ def test_train_100m_tiny_on_the_card(sm90, tmp_path):
         "tokens consumed (CRDT progress counter): 7,680")
 
 
-# -- the autotuner and the model side's meshes (slice 10) ----------------------
+# -- round_step's plans and the model side's meshes (slice 10) -----------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind_name", sorted(KINDS))
@@ -1179,8 +1179,8 @@ def test_train_100m_tiny_on_the_card(sm90, tmp_path):
 @pytest.mark.parametrize("w", ["u1024", "ragged", "u1001", "u64", "u7"])
 def test_every_round_step_plan_equals_plain(sm90, kind_name, flavor,
                                             topo_name, w, rng):
-    """Each candidate the autotuner may pick (``round_step.plans``) computes
-    the plain version's round exactly, on B = 2 configs; U = 64 and 7 are
+    """Each plan on ``round_step.plans``' ladder, the default first,
+    computes the plain version's round exactly, on B = 2 configs; U = 64 and 7 are
     short rows, whose ladders hold the short-row kernel's plans (configs
     a block, direct or staged loads)."""
     from repro_torch.kernels import _build as KB
@@ -1214,54 +1214,6 @@ def test_every_round_step_plan_equals_plain(sm90, kind_name, flavor,
             assert (g is None) == (wv is None), (pl, nm)
             if g is not None:
                 assert torch.equal(g, wv), (pl, nm)
-
-
-@pytest.mark.cuda
-def test_sync_round_block_tunes_on_the_card(sm90, tmp_path, monkeypatch):
-    """``REPRO_AUTOTUNE=1`` times every candidate with CUDA events into a
-    fresh file (one key, named by the card), and a later call resolves the
-    winner from it; ``round_step`` then launches that plan."""
-    import json
-
-    from repro_torch.kernels import common
-
-    path = tmp_path / "tune.json"
-    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
-    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
-    common._TUNE_MEM.clear()
-    topo = topology.partial_mesh(15, 4).on(sm90)
-    b, n, u, p, k = 1, 15, 1 << 16, 4, 5
-    g = torch.Generator(device=sm90).manual_seed(3)
-    ints = [torch.randint(0, 50, s, generator=g, device=sm90,
-                          dtype=torch.int32)
-            for s in ((b, n, u), (b, n, u), (k, b, n, u))]
-    args = (*ints, topo.mask.to(torch.int32)[None].contiguous(),
-            torch.ones((b, n), dtype=torch.int32, device=sm90), topo.nbrs,
-            topo.rev)
-    kw = dict(kind="max", per_origin=True, extracts=True, emit_inbox=False)
-    try:
-        kstep.round_step(*args, **kw)                # tunes on a cache miss
-        torch.cuda.synchronize()
-        (key, entry), = json.loads(path.read_text()).items()
-        assert common.backend_key(sm90) in key
-        assert common.backend_key(sm90).endswith("-sm90")
-        cands = kstep.plans(n, p, k, True, 4, u, True)
-        assert len(entry["timings_s"]) == len(cands)
-        win = kstep.Plan(*entry["config"])
-        assert win in cands
-        common._TUNE_MEM.clear()
-        monkeypatch.setenv("REPRO_AUTOTUNE", "")
-        assert ops.sync_round_block(b, n, u, p=p, k=k, per_origin=True,
-                                    device=sm90) == (win, "cache")
-        got = kstep.round_step(*args, **kw)
-        assert kstep.last_launch[0] == win
-        want = kstep.plain(*args[:7], "max", True, True, False)
-        for a, w in zip(got, want):
-            assert (a is None) == (w is None)
-            if a is not None:
-                assert torch.equal(a, w)
-    finally:
-        common._TUNE_MEM.clear()
 
 
 @pytest.mark.cuda

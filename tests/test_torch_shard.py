@@ -331,8 +331,6 @@ def test_mesh_geometry():
     assert all(b.device == torch.device("cpu") for b in blocks)
     with pytest.raises(ValueError, match="not divisible"):
         tmesh.shard_store_scan(7, tmesh.store_mesh(device=FOUR))
-    with pytest.raises(ValueError, match="config_devices"):
-        tmesh.store_mesh(config_devices=2, device=FOUR)
     one = tmesh.batch_mesh(tmesh.STORE_AXIS, False, "cpu")
     assert one.shape == {"object": 1} and one.devices == [torch.device("cpu")]
     assert tmesh.batch_mesh(tmesh.SWEEP_AXIS, True, FOUR).shape == \

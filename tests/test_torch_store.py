@@ -455,9 +455,6 @@ def test_store_validation_and_unported_options():
             objects=B, op_fn=op, faults=FaultSchedule.none(ttopo.tree(N), T)),
             T, device="cpu")
     ok = StoreSpec(objects=B, op_fn=op)
-    with pytest.raises(ValueError, match="layout"):
-        simulate_store("bprr", lat, ttp, ok, T, layout="diagonal",
-                       device="cpu")
     with pytest.raises(ValueError, match="cannot split"):
         simulate_store("bprr", lat, ttp, ok, T, shard=True, pad_to=3,
                        device=["cpu"] * 2)
