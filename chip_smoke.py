@@ -839,11 +839,13 @@ def store_kernel_timings(check, dev, log):
                 launched, "plan": dict(pl._asdict(), blocks=blocks),
                 "long_row_kernel_ms": old_ms,
                 "long_row_plan": old._asdict()})
+            loads = (f"a ring of {pl.stages} stages" if pl.bulk
+                     else "direct loads")
             print(f"store shapes {tag} {flavour}: round_step {ms:.3f} ms "
                   f"(bound {b_ms:.3f} by {b_by}, {ms and b_ms / ms:.1%}), "
                   f"{launched} launch, short rows: {pl.lanes} lanes a row, "
                   f"g = {pl.configs} configs a block, {pl.threads} threads, "
-                  f"{'a bulk-copied stage' if pl.bulk else 'direct loads'}, "
+                  f"{loads}, "
                   f"{pl.smem} B shared, {blocks} blocks; the long-row "
                   f"kernel {old_ms:.3f} ms (tile {old.tile}, vec "
                   f"{old.vec_bytes}, stages {old.stages})", flush=True)
@@ -4531,7 +4533,7 @@ def plan_name(pl) -> str:
     """A ``round_step`` plan in a few words."""
     if pl.short:
         return (f"short rows {pl.lanes} lanes g {pl.configs} "
-                f"{'staged' if pl.bulk else 'direct'}")
+                f"{f'ring {pl.stages}' if pl.bulk else 'direct'}")
     return f"tile {pl.tile} vec {pl.vec_bytes} stages {pl.stages}"
 
 

@@ -31,41 +31,56 @@
 // Routing mixes nodes but never universe columns or configs. Two kernels,
 // chosen by the row's width (kernels/round_step.py plan):
 //
-// Short rows (short_kernel: at most 32 lane vectors a (config, node) row,
+// Short rows (short_kernel: at most 32 vectors a (config, node) row,
 // U·elem <= 512 bytes at 16-byte lanes; a keyed store's objects, a sweep's
 // small states; P <= 4). The TPU kernel's g configs a tile:
 // - Lane groups. A row is a group of L lanes (L a power of two <= 32, the
-//   row's vectors rounded up), a lane one vector (16, 8 or 4 bytes where
-//   every base and row is aligned to it, else one element), so a warp holds
-//   32 / L rows. A block holds g configs × N nodes, g·N·L <= 1,024 threads,
-//   and the g configs' rows of a plane are one contiguous run: every load
-//   and store is coalesced.
-// - Registers. A thread loads its row's δ, x and K slots straight into
-//   registers, joins, folds and receives there, and stores x', the K slots
-//   (and the inbox) from there. Only the S send rows (S = P for the fold,
-//   else 1) go to shared memory, because routing reads other nodes' sends:
-//   [2][S][g·N][U], double-buffered, so one barrier a group separates
-//   "sends written" from "sends read".
-// - Loads, two ways (the plan's `stages`). Direct: each thread issues its
-//   2+K independent vector loads at the top of a group; the blocks
-//   resident on an SM overlap one another's loads and work. Staged (16-byte
-//   lanes): the group's 2+K planes come into a shared stage by one bulk
-//   asynchronous copy a plane, armed on an mbarrier, and the block's next
-//   group is copied in as soon as the group's barrier shows the stage
-//   read, so its loads fly while the group receives and stores. On the
-//   H100 the stage won at a million objects (16 nodes × 32 int32, g = 4
-//   in 512 threads: 13.21 ms, direct 13.74-14.15) and lost at the Retwis
-//   store (50 nodes × 64, g = 1 in 800 threads: 2.448 ms, direct 2.383);
-//   the default plan follows that (kernels/round_step.py short_plans).
+//   row's lanes rounded up), a lane one vector (16, 8 or 4 bytes where
+//   every base and row is aligned to it, else one element) or, on the
+//   ring, two 16-byte vectors L apart (vectors j and j + L: each access of
+//   a warp stays one contiguous run), so a warp holds 32 / L rows. A block
+//   holds g configs × N nodes, and the g configs' rows of a plane are one
+//   contiguous run: every load and store is coalesced.
+// - Registers. A thread holds its row's δ, x and K slots in registers,
+//   joins, folds and receives there, and stores x', the K slots (and the
+//   inbox) from there. Only the S send rows (S = P for the fold, else 1)
+//   go to shared memory, because routing reads other nodes' sends.
+// - Loads, two ways (the plan's `stages`). Ring (rows of an even number
+//   of 16-byte vectors, half of it a power of two; 2-3 stages): a ring of
+//   shared stages [2+K][g·N][U], one group of g configs each. The block's
+//   last warp is the producer: one lane of it walks the block's groups up
+//   to `stages` ahead of the other warps; for each it waits on the stage's
+//   empty mbarrier, arms the full one with the group's bytes and issues
+//   one bulk asynchronous copy a plane (δ, x, the K slots: a group's rows
+//   of a plane are one contiguous run). The other warps wait on the full
+//   mbarrier, read their rows into registers, and each arrives on the
+//   empty mbarrier at once, so the next groups' loads are in flight while
+//   a group joins, routes and stores. The sends go to one buffer
+//   [S][g·N][U] between two barriers of those warps a group ("the last
+//   group's sends read", "sends written"). Two vectors a lane halve the
+//   threads, to at most RING_THREADS = 512 with the producer, and so give
+//   a thread 128 registers: nothing spills, although the ring leaves the
+//   L1 cache what the stages do not take. Direct (rows not 16-byte
+//   aligned, uint8 rows, other widths, shapes where two stages do not fit):
+//   each thread loads its 2+K vectors straight into registers, and the
+//   sends go to two buffers [2][S][g·N][U], one barrier a group apart.
+//   On the H100 at the Retwis store [30,000, 50, 64] bprr: the ring (g =
+//   1, two stages of 89.6 KB, 448 threads) 1.852 ms, direct 2.06 (82% and
+//   74% of the 1.524 ms byte bound); at a million objects [1,048,576, 16,
+//   32]: ring g = 6 11.02 ms, direct 11.64 (bound 8.71). A receiver that
+//   folded its sender's send from the stage instead of a send buffer, with
+//   one 16-byte vector a lane, took 3.0-3.2 ms: 20 more shared reads a
+//   thread a group, each send computed twice, and spills.
 // - Tables. A thread's node is fixed over the walk, so it reads its
 //   nbrs/rev entries once into registers (the offsets of its P routed send
-//   rows); active and delivered are read per group (staged: the next
-//   group's with its copies).
-// - Counts, no atomics. A row's 3P+2 counts are reduced over its lane group
-//   by xor-shuffle halving (each step sends half the counts a lane holds
-//   and keeps the other half), after which each count sits in one lane,
-//   which stores it: every (config, node) entry is written exactly once,
-//   so the outputs need no zero-fill.
+//   rows); active and delivered are read per group.
+// - Counts, no atomics. A row's 3P+2 counts are held two a word (16 bits
+//   each) and reduced over its lane group by xor-shuffle halving (each
+//   step sends half the words a lane holds and keeps the other half, the
+//   last one half a word), after which each count sits in one lane, which
+//   stores it: every (config, node) entry is written exactly once, so the
+//   outputs need no zero-fill. Packing the counts took the direct path
+//   from 2.37 to 2.06 ms at the Retwis store: 16 registers fewer a thread.
 // - Grid. One persistent 1-D launch for any B: min(groups of g configs,
 //   resident blocks × SMs, max_blocks) blocks walk the groups.
 //
@@ -111,6 +126,8 @@
 //   gridDim.y, each chunk's first config `b0` passed in; every offset is
 //   64-bit. The wrapper picks VB and the stages that fit shared memory.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 // -- Hopper primitives: mbarrier and the 1-D bulk copy ------------------------
@@ -127,6 +144,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Arrive once, releasing this thread's earlier reads and writes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
 }
 
 // Wait until the phase of parity `parity` has completed.
@@ -543,18 +566,24 @@ __global__ void __launch_bounds__(PM ? 512 : 1024) round_step_kernel(
 // -- short rows: g configs a block, a lane group a row -------------------------
 
 // A row's counts on the short path, in output order: |⇓δ|, |⇓x'|, then PM
-// send sizes, PM novel and PM received counts; padded to 16 for the
-// halving reduction.
+// send sizes, PM novel and PM received counts; two a word, 16 bits each (a
+// short row holds at most 512 bytes, 4,096 irreducibles), padded to 8
+// words for the halving reduction.
 constexpr int SP = REG_TALLY_P;
-constexpr int C_SEND = 2, C_CNT = 2 + SP, C_DSZ = 2 + 2 * SP, NCOUNT = 16;
-static_assert(C_DSZ + SP <= NCOUNT, "a row's counts exceed the reduction");
+constexpr int C_SEND = 2, C_CNT = 2 + SP, C_DSZ = 2 + 2 * SP, NWORD = 8;
+static_assert(C_DSZ + SP <= 2 * NWORD, "a row's counts exceed the reduction");
+
+// Add v to count t (a constant once unrolled) of a row's packed counts.
+__device__ __forceinline__ void tally(int (&tal)[NWORD], int t, int v) {
+  tal[t >> 1] += (t & 1) ? v << 16 : v;
+}
 
 // One halving step of a lane group's sum of its counts: the lane `off` away
-// holds the same counts of other columns; the lane whose `off` bit is clear
-// keeps the sums of counts [0, H), the other those of [H, 2H), moved down
-// to [0, H). Returns the first count the lane now holds, relative.
+// holds the same words of other columns; the lane whose `off` bit is clear
+// keeps the sums of words [0, H), the other those of [H, 2H), moved down
+// to [0, H). Returns the first word the lane now holds, relative.
 template <int H>
-__device__ __forceinline__ int halve(int (&tal)[NCOUNT], int sub, int off) {
+__device__ __forceinline__ int halve(int (&tal)[NWORD], int sub, int off) {
   const bool up = (sub & off) != 0;
 #pragma unroll
   for (int j = 0; j < H; ++j) {
@@ -565,37 +594,97 @@ __device__ __forceinline__ int halve(int (&tal)[NCOUNT], int sub, int off) {
   return up ? H : 0;
 }
 
-// PF: the group's 2+K input planes come into a shared stage by one bulk
-// asynchronous copy a plane (16-byte lanes only), the next group's issued
-// as soon as every thread has read the stage; else each thread loads its
-// vectors straight into registers.
-template <class T, class Op, int VB, bool PF>
-__global__ void __launch_bounds__(1024) short_kernel(
+// A ring lane's share of a row: VB / 16 vectors of 16 bytes, `stride`
+// elements apart (vector j of the lane's lane group, then vector j + L),
+// so that each of a warp's accesses is one contiguous run.
+template <class T, int VB>
+struct Split {
+  using L = Lane<T, 16>;
+  static constexpr int W = VB / 16, V = W * L::V;
+  T e[V];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = T(0);
+  }
+  __device__ __forceinline__ void load(const T* p, int stride) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      L v;
+      v.load(p + w * stride);
+#pragma unroll
+      for (int j = 0; j < L::V; ++j) e[w * L::V + j] = v.e[j];
+    }
+  }
+  __device__ __forceinline__ void store(T* p, int stride) const {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      L v;
+#pragma unroll
+      for (int j = 0; j < L::V; ++j) v.e[j] = e[w * L::V + j];
+      v.store(p + w * stride);
+    }
+  }
+  template <class Op> __device__ __forceinline__ void join(const Split& o) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = Op::join(e[j], o.e[j]);
+  }
+  template <class Op> __device__ __forceinline__ int count() const {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) c += Op::count(e[j]);
+    return c;
+  }
+};
+
+constexpr int RING_THREADS = 512;   // kernels/round_step.py RING_THREADS
+
+// RING: a ring of `stages` shared stages [2+K][g·N][U], one group each,
+// filled by the block's last warp with one bulk asynchronous copy a plane,
+// each stage handed back as soon as the other warps have read their rows
+// from it; one send buffer [S][g·N][U] between two barriers a group. Else
+// each thread loads its vectors straight from device memory, and the
+// sends go through two buffers [2][S][g·N][U], one barrier a group apart.
+template <class T, class Op, int VB, bool RING>
+__global__ void __launch_bounds__(RING ? RING_THREADS : 1024) short_kernel(
     const T* __restrict__ delta, const T* __restrict__ x, const T* buf,
     const int32_t* __restrict__ active, const int32_t* __restrict__ delivered,
     const int32_t* __restrict__ nbrs, const int32_t* __restrict__ rev,
     T* __restrict__ xo, T* bo, T* __restrict__ inbox,
     int32_t* __restrict__ nodecnt, int32_t* __restrict__ ssend,
     int32_t* __restrict__ cnt, int32_t* __restrict__ dsz, long long nb, int n,
-    int p, int k, int per_origin, int extracts, int u, int lg, int g) {
-  using L = Lane<T, VB>;
+    int p, int k, int per_origin, int extracts, int u, int lg, int g,
+    int stages) {
+  // a lane's columns: VB bytes of a row in one vector, or (RING) two
+  // 16-byte vectors `half` columns apart
+  using L = std::conditional_t<RING, Split<T, VB>, Lane<T, VB>>;
   constexpr int V = L::V;
-  static_assert(!PF || VB == 16, "bulk copies move 16-byte multiples");
+  constexpr int VV = RING ? 16 / sizeof(T) : V;      // columns a vector
+  static_assert(!RING || VB == 32, "ring lanes move two 16-byte vectors");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sends = reinterpret_cast<T*>(smem);       // [2][S][g·N][U]
+  T* const sh = reinterpret_cast<T*>(smem);
   const bool fold = per_origin && k > 0;       // leave-one-out sends
-  const int S = fold ? p : 1;                  // send rows per node
   const int rows = g * n;                      // rows of a group
   const int lanes = 1 << lg;
+  const int consumers = (rows * lanes + 31) & ~31;   // threads with a row
   const int r = threadIdx.x >> lg;             // the thread's row of a group
   const int sub = threadIdx.x & (lanes - 1);   // its vector of the row
   const int c = r / n, i = r - c * n;          // its config in the group, node
-  const int col = sub * V;                     // its first column
+  const int col = sub * VV;                    // its first column
+  const int half = lanes * VV;                 // RING: to its second vector
   const bool in_row = r < rows && col < u;     // a vector is all in or out
   const int self_slot = per_origin ? k - 1 : 0;
   const long long plane = nb * n * u;          // a [B, N, U] plane
-  const long long buffer = (long long)S * rows * u;  // one send buffer
   const long long groups = (nb + g - 1) / g;
+  const int group_elems = rows * u;            // a group's rows of a plane
+  const int my_row = r * u + col;              // the thread's vector there
+  // RING: the stages, the send buffer, then a full and an empty mbarrier a
+  // stage; direct: the two send buffers
+  const int stage_elems = (2 + k) * group_elems;
+  const int buffer = (fold ? p : 1) * group_elems;   // one send buffer
+  T* const sends = sh + stages * stage_elems;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sends + buffer);
+  uint64_t* empty = full + stages;
 
   // the routed send row of each slot: an offset into a send buffer
   int soff[SP];
@@ -607,96 +696,133 @@ __global__ void __launch_bounds__(1024) short_kernel(
       soff[q] = ((fold ? rev[e] : 0) * rows + c * n + nbrs[e]) * u + col;
     }
   }
-  const long long my_send = (long long)r * u + col;    // + slot·rows·U
 
-  // PF: the stage [2+K][g·N][U] after the send buffers, then its mbarrier
-  const long long group_elems = (long long)rows * u;
-  T* stage = sends + 2 * buffer;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + (2 + k) * group_elems);
-  // thread 0: arm the barrier with group grp2's bytes and copy its planes
-  auto issue = [&](long long grp2) {
-    const long long b0 = grp2 * g;
-    const long long cfgs = nb - b0 < g ? nb - b0 : g;
-    const uint32_t bytes = static_cast<uint32_t>(cfgs * n * u * sizeof(T));
-    const long long off = b0 * n * u;
-    mbar_expect_tx(bar, bytes * (2 + k));
-    bulk_load(stage, delta + off, bytes, bar);
-    bulk_load(stage + group_elems, x + off, bytes, bar);
-    for (int s = 0; s < k; ++s)
-      bulk_load(stage + (2 + s) * group_elems, buf + s * plane + off, bytes,
-                bar);
+  if constexpr (RING) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], consumers >> 5);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x >= consumers) {
+      // the producer: one lane brings the block's groups in, each into the
+      // next stage once every consumer warp has read the group before it
+      if (threadIdx.x == consumers) {
+        int st = 0;
+        uint32_t ph = 0;
+        long long it = 0;
+        for (long long grp = blockIdx.x; grp < groups;
+             grp += gridDim.x, ++it) {
+          if (it >= stages) {
+            mbar_wait(&empty[st], ph ^ 1);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          }
+          const long long b0 = grp * g;
+          const long long cfgs = nb - b0 < g ? nb - b0 : g;
+          const uint32_t bytes =
+              static_cast<uint32_t>(cfgs * n * u * sizeof(T));
+          const long long off = b0 * n * u;
+          T* dst = sh + st * stage_elems;
+          mbar_expect_tx(&full[st], bytes * (2 + k));
+          bulk_load(dst, delta + off, bytes, &full[st]);
+          bulk_load(dst + group_elems, x + off, bytes, &full[st]);
+          for (int s = 0; s < k; ++s)
+            bulk_load(dst + (2 + s) * group_elems, buf + s * plane + off,
+                      bytes, &full[st]);
+          if (++st == stages) { st = 0; ph ^= 1; }
+        }
+      }
+      return;
+    }
+  }
+  // the barrier of the threads with a row (RING: not the producer)
+  auto sync_rows = [&] {
+    if constexpr (RING)
+      asm volatile("bar.sync 1, %0;\n" ::"r"(consumers) : "memory");
+    else
+      __syncthreads();
   };
-  // the active slots (a bit each) and the clear flag of this thread's row
-  // of group grp2
-  auto flags = [&](long long grp2, int& act2, bool& clear2) {
-    act2 = 0;
-    clear2 = false;
+
+  // this thread's row of group grp2: its active slots (bits 0..P-1) and
+  // its clear flag (bit P)
+  auto flags = [&](long long grp2) {
+    int f = 0;
     const long long b2 = grp2 * g + c;
     if (r < rows && b2 < nb) {
       const long long row2 = b2 * n + i;
 #pragma unroll
       for (int q = 0; q < SP; ++q)
-        if (q < p && active[row2 * p + q] != 0) act2 |= 1 << q;
-      clear2 = delivered != nullptr && delivered[row2] != 0;
+        if (q < p && active[row2 * p + q] != 0) f |= 1 << q;
+      if (delivered != nullptr && delivered[row2] != 0) f |= 1 << SP;
     }
+    return f;
   };
-  uint32_t ph = 0;
-  int act = 0;                                 // this group's flags
-  bool clear = false;
-  if constexpr (PF) {
-    if (threadIdx.x == 0) {
-      mbar_init(bar, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x == 0 && blockIdx.x < groups) issue(blockIdx.x);
-    flags(blockIdx.x, act, clear);
-  }
 
+  // a lane's columns of the row at `from`, or to the row at `to`
+  auto get = [&](L& v, const T* from) {
+    if constexpr (RING) v.load(from, half);
+    else v.load(from);
+  };
+  auto set = [&](const L& v, T* to) {
+    if constexpr (RING) v.store(to, half);
+    else v.store(to);
+  };
+
+  int st = 0;
+  uint32_t ph = 0;
   long long it = 0;
-  // The loop bound is block-uniform: every thread reaches the barrier and
-  // every lane of a warp the shuffles.
+  // The loop bound is uniform over the threads with a row: every one
+  // reaches the barriers and every lane of a warp the shuffles.
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
     const long long b = grp * g + c;
     const bool live = r < rows && b < nb;      // the row exists
     const bool valid = in_row && b < nb;       // and so does the vector
     const long long row = b * n + i;
     const long long at = row * u + col;
-    T* sd = sends + (it & 1) * buffer;
-    if constexpr (!PF) flags(grp, act, clear);
-    L dv, xv, sl[SP + 1];
-    if constexpr (PF) {
-      mbar_wait(bar, ph);
-      ph ^= 1;
-    }
+    const int fl = flags(grp);
+    const bool clear = (fl >> SP & 1) != 0;
+    T* sd = RING ? sends : sh + (it & 1) * buffer;
+    if constexpr (RING) mbar_wait(&full[st], ph);
     // input plane s of the row: the stage, or device memory
+    const T* stage = sh + st * stage_elems + my_row;
     auto in = [&](L& v, int s, const T* src) {
       if (!valid) v.zero();
-      else if constexpr (PF) v.load(stage + s * group_elems + my_send);
-      else v.load(src + at);
+      else if constexpr (RING) get(v, stage + s * group_elems);
+      else get(v, src + at);
     };
+    L dv, xv, sl[SP + 1];
     in(dv, 0, delta);
     in(xv, 1, x);
 #pragma unroll
     for (int s = 0; s <= SP; ++s)
       if (s < k) in(sl[s], 2 + s, buf + s * plane);
+    if constexpr (RING) {
+      // the warp's reads of the stage are done: hand it back
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
 
     // (1) local join, (2) sends
-    int tal[NCOUNT];
+    int tal[NWORD];
 #pragma unroll
-    for (int t = 0; t < NCOUNT; ++t) tal[t] = 0;
-    tal[0] = dv.template count<Op>();
+    for (int t = 0; t < NWORD; ++t) tal[t] = 0;
+    tally(tal, 0, dv.template count<Op>());
     xv.template join<Op>(dv);
 #pragma unroll
     for (int s = 0; s <= SP; ++s)
       if (s < k && s == self_slot) sl[s].template join<Op>(dv);
+    if constexpr (RING) sync_rows();           // the last group's sends read
     if (!fold) {
       L v = xv;                                // the broadcast
       if (k > 0) v = sl[0];
-      if (valid) v.store(sd + my_send);
+      if (valid) set(v, sd + my_row);
       const int cv = v.template count<Op>();
 #pragma unroll
-      for (int q = 0; q < SP; ++q) tal[C_SEND + q] = q < p ? cv : 0;
+      for (int q = 0; q < SP; ++q)
+        if (q < p) tally(tal, C_SEND + q, cv);
     } else {
       // leave-one-out over the K = P+1 slots
 #pragma unroll
@@ -707,22 +833,12 @@ __global__ void __launch_bounds__(1024) short_kernel(
 #pragma unroll
           for (int o = 0; o <= SP; ++o)
             if (o < k && o != j) v.template join<Op>(sl[o]);
-          if (valid) v.store(sd + my_send + (long long)j * rows * u);
-          tal[C_SEND + j] = v.template count<Op>();
+          if (valid) set(v, sd + my_row + j * group_elems);
+          tally(tal, C_SEND + j, v.template count<Op>());
         }
       }
     }
-    if constexpr (PF)   // this thread's stage reads before the copies
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();                           // every row's sends written
-    int act_next = 0;
-    bool clear_next = false;
-    if constexpr (PF) {
-      // every thread has read the stage: bring in the block's next group
-      const long long next = grp + gridDim.x;
-      if (threadIdx.x == 0 && next < groups) issue(next);
-      flags(next, act_next, clear_next);
-    }
+    sync_rows();                               // every row's sends written
 
     // (3) clear, (4)+(5)+(6) route and receive the P slots in order
     L ext;
@@ -731,7 +847,7 @@ __global__ void __launch_bounds__(1024) short_kernel(
     for (int q = 0; q < SP; ++q) {
       if (q < p) {
         L dq, nv;
-        if (valid && (act >> q & 1)) dq.load(sd + soff[q]);
+        if (valid && (fl >> q & 1)) get(dq, sd + soff[q]);
         else dq.zero();
         int nov = 0;
 #pragma unroll
@@ -739,15 +855,15 @@ __global__ void __launch_bounds__(1024) short_kernel(
           nov += Op::novel_count(dq.e[j], xv.e[j]);
           nv.e[j] = Op::novel(dq.e[j], xv.e[j]);
         }
-        tal[C_CNT + q] = nov;
-        tal[C_DSZ + q] = dq.template count<Op>();
-        if (inbox != nullptr && valid) dq.store(inbox + q * plane + at);
+        tally(tal, C_CNT + q, nov);
+        tally(tal, C_DSZ + q, dq.template count<Op>());
+        if (inbox != nullptr && valid) set(dq, inbox + q * plane + at);
         if (extracts) {
           if (per_origin) {
             L v = sl[q];
             if (clear) v.zero();
             v.template join<Op>(nv);
-            if (valid) v.store(bo + q * plane + at);
+            if (valid) set(v, bo + q * plane + at);
           } else {
             ext.template join<Op>(nv);
           }
@@ -756,52 +872,64 @@ __global__ void __launch_bounds__(1024) short_kernel(
       }
     }
     // write back x' and the K slots
-    tal[1] = xv.template count<Op>();
+    tally(tal, 1, xv.template count<Op>());
     if (valid) {
-      xv.store(xo + at);
+      set(xv, xo + at);
 #pragma unroll
       for (int s = 0; s <= SP; ++s) {
         if (s < k && !(extracts && per_origin && s < p)) {
           L v = sl[s];
           if (clear) v.zero();
           v.template join<Op>(ext);            // flat extracts: slot 0
-          v.store(bo + s * plane + at);
+          set(v, bo + s * plane + at);
         }
       }
     }
 
-    // the row's counts over its lane group: four halving steps across the
-    // lanes L/2, L/4, ... away (as many as L has), then a plain sum across
-    // the neighbour where L = 32; lane `sub` is left with the counts
-    // base .. base + mine - 1 (with L = 32 both lanes of a pair: the even
-    // one writes)
-    int base = 0;
-    if (lg > 0) base += halve<8>(tal, sub, lanes >> 1);
-    if (lg > 1) base += halve<4>(tal, sub, lanes >> 2);
-    if (lg > 2) base += halve<2>(tal, sub, lanes >> 3);
-    if (lg > 3) base += halve<1>(tal, sub, lanes >> 4);
+    // the row's counts over its lane group: three halving steps of words
+    // across the lanes L/2, L/4, L/8 away (as many as L has), one of the
+    // last word's two counts across the lanes L/16 away, then a plain sum
+    // across the neighbour where L = 32; lane `sub` is left with words
+    // base .. base + (8 >> lg) - 1, or (L >= 16) with count 2·base + upper
+    // (with L = 32 both lanes of a pair: the even one writes)
+    int base = 0, upper = 0;
+    if (lg > 0) base += halve<4>(tal, sub, lanes >> 1);
+    if (lg > 1) base += halve<2>(tal, sub, lanes >> 2);
+    if (lg > 2) base += halve<1>(tal, sub, lanes >> 3);
+    if (lg > 3) {
+      const int off = lanes >> 4;
+      upper = (sub & off) != 0;
+      const unsigned w = static_cast<unsigned>(tal[0]);
+      const int lo = w & 0xffffu, hi = w >> 16;
+      tal[0] = (upper ? hi : lo) +
+               __shfl_xor_sync(0xffffffffu, upper ? lo : hi, off);
+    }
     if (lg > 4) tal[0] += __shfl_xor_sync(0xffffffffu, tal[0], 1);
-    const int mine = NCOUNT >> (lg < 4 ? lg : 4);
+    // count t's one entry in the outputs
+    auto write = [&](int t, int v) {
+      if (t < C_SEND) {
+        nodecnt[2 * row + t] = v;
+      } else if (t < C_CNT) {
+        if (t - C_SEND < p) ssend[row * p + t - C_SEND] = v;
+      } else if (t < C_DSZ) {
+        if (t - C_CNT < p) cnt[row * p + t - C_CNT] = v;
+      } else if (t < C_DSZ + SP) {
+        if (t - C_DSZ < p) dsz[row * p + t - C_DSZ] = v;
+      }
+    };
     if (live && (lg <= 4 || (sub & 1) == 0)) {
+      if (lg > 3) {
+        write(2 * base + upper, tal[0]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < NCOUNT; ++j) {
-        if (j < mine) {
-          const int t = base + j;
-          if (t < C_SEND) {
-            nodecnt[2 * row + t] = tal[j];
-          } else if (t < C_CNT) {
-            if (t - C_SEND < p) ssend[row * p + t - C_SEND] = tal[j];
-          } else if (t < C_DSZ) {
-            if (t - C_CNT < p) cnt[row * p + t - C_CNT] = tal[j];
-          } else if (t < C_DSZ + SP) {
-            if (t - C_DSZ < p) dsz[row * p + t - C_DSZ] = tal[j];
+        for (int j = 0; j < NWORD; ++j) {
+          if (j < (NWORD >> lg)) {
+            const unsigned w = static_cast<unsigned>(tal[j]);
+            write(2 * (base + j), w & 0xffffu);
+            write(2 * (base + j) + 1, w >> 16);
           }
         }
       }
-    }
-    if constexpr (PF) {
-      act = act_next;
-      clear = clear_next;
     }
   }
 }
@@ -964,29 +1092,32 @@ extern "C" int round_step_launch(
 
 // -- the short-row launch ------------------------------------------------------
 
-template <class T, class Op, int VB, bool PF>
+template <class T, class Op, int VB, bool RING>
 static int launch_short(const void* delta, const void* x, const void* buf,
                         const void* active, const void* delivered,
                         const void* nbrs, const void* rev, void* xo, void* bo,
                         void* inbox, void* nodecnt, void* ssend, void* cnt,
                         void* dsz, long long nb, int n, int p, int k,
-                        int per_origin, int extracts, int u, int lanes,
-                        int configs, int threads, long long smem_bytes,
-                        long long max_blocks, long long* blocks,
-                        cudaStream_t stream) {
-  constexpr int V = Lane<T, VB>::V;
+                        int per_origin, int extracts, int u, int stages,
+                        int lanes, int configs, int threads,
+                        long long smem_bytes, long long max_blocks,
+                        long long* blocks, cudaStream_t stream) {
+  constexpr int V = VB ? VB / (int)sizeof(T) : 1;    // columns a lane
   int lg = 0;
   while ((1 << lg) < lanes) ++lg;
   const int S = per_origin && k > 0 ? p : 1;
   const long long rows = (long long)configs * n;
-  const long long need = (2 * S + (PF ? 2 + k : 0)) * rows * u *
-                         (long long)sizeof(T) + (PF ? 8 : 0);
-  if ((1 << lg) != lanes || lanes > 32 || (u + V - 1) / V > lanes ||
-      u % V != 0 || rows * lanes > 1024 ||
-      threads != (rows * lanes + 31) / 32 * 32 || smem_bytes < need)
+  const long long plane = rows * u * (long long)sizeof(T);  // a group's
+  const long long consumers = (rows * lanes + 31) / 32 * 32;
+  const long long need =
+      RING ? stages * ((2 + k) * plane + 16) + S * plane : 2 * S * plane;
+  if ((1 << lg) != lanes || lanes > 32 ||
+      (RING ? lanes * V != u : (u + V - 1) / V > lanes || u % V != 0) ||
+      threads != consumers + (RING ? 32 : 0) ||
+      threads > (RING ? RING_THREADS : 1024) || smem_bytes < need)
     return static_cast<int>(cudaErrorInvalidValue);
   static Residency cache;
-  const long long resident = resident_blocks(short_kernel<T, Op, VB, PF>,
+  const long long resident = resident_blocks(short_kernel<T, Op, VB, RING>,
                                              cache, threads, smem_bytes);
   if (resident < 0) return static_cast<int>(-resident);
   const long long groups = (nb + configs - 1) / configs;
@@ -994,8 +1125,8 @@ static int launch_short(const void* delta, const void* x, const void* buf,
   if (grid > max_blocks) grid = max_blocks;
   if (grid < 1) grid = 1;
   if (blocks != nullptr) *blocks = grid;
-  short_kernel<T, Op, VB, PF><<<(unsigned)grid, threads, smem_bytes,
-                                stream>>>(
+  short_kernel<T, Op, VB, RING><<<(unsigned)grid, threads, smem_bytes,
+                                  stream>>>(
       static_cast<const T*>(delta), static_cast<const T*>(x),
       static_cast<const T*>(buf), static_cast<const int32_t*>(active),
       static_cast<const int32_t*>(delivered),
@@ -1003,13 +1134,13 @@ static int launch_short(const void* delta, const void* x, const void* buf,
       static_cast<T*>(xo), static_cast<T*>(bo), static_cast<T*>(inbox),
       static_cast<int32_t*>(nodecnt), static_cast<int32_t*>(ssend),
       static_cast<int32_t*>(cnt), static_cast<int32_t*>(dsz), nb, n, p, k,
-      per_origin, extracts, u, lg, configs);
+      per_origin, extracts, u, lg, configs, RING ? stages : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T, class Op, class... A>
 static int short_by_width(int vb, int stages, A... a) {
-  if (stages != 0 && (stages != 1 || vb != 16))
+  if ((stages != 0) != (vb == 32) || stages == 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (vb) {
     case 0: return launch_short<T, Op, 0, false>(a...);
@@ -1018,9 +1149,8 @@ static int short_by_width(int vb, int stages, A... a) {
   if constexpr (sizeof(T) == 4) {
     switch (vb) {
       case 8: return launch_short<T, Op, 8, false>(a...);
-      case 16:
-        return stages ? launch_short<T, Op, 16, true>(a...)
-                      : launch_short<T, Op, 16, false>(a...);
+      case 16: return launch_short<T, Op, 16, false>(a...);
+      case 32: return launch_short<T, Op, 32, true>(a...);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1030,14 +1160,15 @@ static int short_by_width(int vb, int stages, A... a) {
 // operands of round_step_launch, but the counts need no zero-fill (each
 // entry is written once) and P <= REG_TALLY_P, K <= P + 1. vb: 16, 8 or 4
 // bytes a lane where every base and U·elem are multiples of it (uint8: 4),
-// 0: one element a lane; stages: 1 to bring each group's input planes in
-// by bulk copies (vb = 16), 0 for direct loads; lanes: L, a power of two
-// <= 32 covering the row's vectors; configs: g a block; threads: g·N·L
-// rounded up to whole warps (<= 1,024); smem_bytes: at least the two send
-// buffers, 2·S·g·N·U·elem, and with a stage (2+K)·g·N·U·elem and 8 more;
-// max_blocks caps the persistent grid, whose blocks walk the groups of g
-// configs beyond it. `blocks` (nullable) receives the grid's blocks. One
-// launch for any B >= 1.
+// 0: one element a lane, all with direct loads (stages 0); or 32, two
+// 16-byte vectors a lane, with the ring of `stages` >= 2 bulk-copied
+// stages; lanes: L, a power of two <= 32 covering the row's vectors (the
+// ring: exactly); configs: g a block; threads: g·N·L rounded up to whole
+// warps, and with the ring one warp more (<= RING_THREADS, else 1,024);
+// smem_bytes: the ring's stages·((2+K)·g·N·U·elem + 16) and one send
+// buffer, S·g·N·U·elem, or direct two send buffers; max_blocks caps the
+// persistent grid, whose blocks walk the groups of g configs beyond it.
+// `blocks` (nullable) receives the grid's blocks. One launch for any B >= 1.
 extern "C" int round_step_short_launch(
     int kind, const void* delta, const void* x, const void* buf,
     const void* active, const void* delivered, const void* nbrs,
@@ -1053,8 +1184,8 @@ extern "C" int round_step_short_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SHORT_ARGS                                                            \
   vb, stages, delta, x, buf, active, delivered, nbrs, rev, xo, bo, inbox,     \
-      nodecnt, ssend, cnt, dsz, nb, n, p, k, per_origin, extracts, u, lanes,  \
-      configs, threads, smem_bytes, max_blocks, blocks, s
+      nodecnt, ssend, cnt, dsz, nb, n, p, k, per_origin, extracts, u, stages, \
+      lanes, configs, threads, smem_bytes, max_blocks, blocks, s
   switch (kind) {
     case KIND_MAX_U8: return short_by_width<uint8_t, MaxOp>(SHORT_ARGS);
     case KIND_MAX_I32: return short_by_width<int32_t, MaxOp>(SHORT_ARGS);

@@ -16,9 +16,11 @@ KERNELS = {"round_step": round_step, "round_recv": round_recv,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0 (and ``round_step``'s count
+    of short-row launches that ran the ring)."""
     for mod in KERNELS.values():
         mod.launches = 0
+    round_step.ring_launches = 0
 
 
 def launch_counts() -> dict:

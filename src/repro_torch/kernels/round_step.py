@@ -15,9 +15,11 @@ Two kernels, and :func:`plan` picks one from the shape alone:
   REG_TALLY_P, and g = 1 config's N·L lanes within a block of 1,024
   threads and its send rows within shared memory. A row is a group of L
   lanes, a block g configs (the TPU kernel's g configs a tile), and one
-  persistent launch walks the groups for any B; a group's input planes
-  load straight into registers or through a shared stage of bulk copies.
-  Counts are written once each, so their outputs are not zero-filled.
+  persistent launch walks the groups for any B. Aligned rows come into a
+  ring of shared stages, filled by a producer warp's bulk asynchronous
+  copies groups ahead of the warps that route them, two 16-byte vectors
+  a lane; other rows load straight into registers. Counts are written
+  once each, so their outputs are not zero-filled.
 * Long rows — every other shape (the paper-size states): a block runs a
   tile of universe columns of one config with all its node rows; a
   thread is a (node, lane) pair holding its node's δ and x in registers,
@@ -41,11 +43,13 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.buffer_fold import plain as fold_plain
 
 launches = 0            # kernel launches since the last reset (CUDA only)
+ring_launches = 0       # of them, short-row launches that ran the ring
 MAX_CONFIGS = 65535     # configs one long-row launch takes (gridDim.y)
 last_launch = None      # (Plan, blocks) of the last launch: blocks per
                         # config (long rows) or in the grid (short rows)
 SMEM_LIMIT = 232448     # dynamic shared memory a block may use on sm_90
 MAX_THREADS = 1024      # threads a block
+RING_THREADS = 512      # most threads a short-row ring block has
 REG_TALLY_P = 4         # largest P with registers per slot (csrc/round_step.cu)
 REG_TALLY_N = 16        # largest N with register tallies (a 512-thread block)
 VEC_BYTES = (16, 8, 4)  # int32 lanes' bytes, widest first (uint8: 4)
@@ -66,11 +70,12 @@ _SIGNATURE = {
 class Plan(NamedTuple):
     """A launch of ``csrc/round_step.cu``: ``tile`` universe columns a
     block step (short rows: a lane group's), ``vec_bytes`` a lane moves
-    per row (0: one element), ``stages`` of the bulk-copy ring (0: direct
-    loads), ``threads`` a block, ``reg_tally`` the P bound of register
-    tallies (0: shared counters), ``lanes`` a row on the short-row kernel
-    (0: the long-row kernel), ``configs`` a block, and the shared memory:
-    int tables, mbarriers, total."""
+    per row (0: one element; a short-row ring: 32, two 16-byte vectors),
+    ``stages`` of the bulk-copy ring (0: direct loads), ``threads`` a
+    block (a short-row ring: with its producer warp), ``reg_tally`` the P
+    bound of register tallies (0: shared counters), ``lanes`` a row on the
+    short-row kernel (0: the long-row kernel), ``configs`` a block, and
+    the shared memory: int tables, mbarriers, total."""
     tile: int
     vec_bytes: int
     stages: int
@@ -104,19 +109,25 @@ def short_plans(n: int, p: int, k: int, per_origin: bool, elem_size: int,
 
     A lane moves the widest vector that every base (``aligned``: 16-byte)
     and the row allow (int32: 16, 8, 4 bytes; uint8: 4), else one
-    element; a row is short if it has at most SHORT_VECS of them, and its
-    ``lanes`` are the power of two that covers them. ``configs`` g: the
-    most configs whose N·L lanes fill at most MAX_THREADS threads and whose
-    two buffers of S send rows fit SMEM_LIMIT, then the TPU kernel's
-    choices {1, 64 // Np, 256 // Np} (Np: N padded to 8) cut to that; each
-    with direct loads and, for 16-byte lanes where it fits, with
-    ``stages`` = 1: a shared stage of the group's 2+K input planes filled
-    by one bulk copy a plane, the next group's copies in flight while a
-    group is worked. The default, as measured on the H100: the most
-    configs in a block of at most MAX_THREADS / 2 threads with the stage
-    (a million objects of 16 nodes × 32 slots: g = 4), else the most
-    configs a block with direct loads (the Retwis store's 50 nodes × 64
-    slots: g = 1, 800 threads, where the stage was 3% slower)."""
+    element; a row is short if it has at most SHORT_VECS of them. Two ways
+    to load, each over the configs a block g that fit it, the most first
+    and then the TPU kernel's choices {1, 64 // Np, 256 // Np} (Np: N
+    padded to 8) cut to that:
+
+    * the ring, where the row is an even number of 16-byte vectors and
+      half of it a power of two: ``vec_bytes`` = 32, two vectors a lane,
+      ``lanes`` half the vectors; ``stages`` of the group's 2+K input
+      planes in shared memory, filled by a producer warp's bulk copies
+      (``threads`` holds it beside the g·N·L lanes, at most RING_THREADS
+      in all), and one buffer of the S send rows (S = P for the fold, else
+      1); each g takes the most stages of STAGES that fit SMEM_LIMIT;
+    * direct loads (``stages`` = 0) into registers, one vector a lane,
+      ``lanes`` the power of two that covers the row, and two buffers of
+      the S send rows; g is cut to what fits MAX_THREADS and SMEM_LIMIT.
+
+    The default is the ring with the most configs a block where a ring
+    fits (the Retwis store's 50 nodes × 64 int32 slots: g = 1, two stages
+    of 89.6 KB), else direct loads with the most configs a block."""
     vecs = VEC_BYTES if elem_size == 4 else (4,)
     vb = next((v for v in vecs if aligned and (u * elem_size) % v == 0), 0)
     count = u * elem_size // vb if vb else u
@@ -124,26 +135,39 @@ def short_plans(n: int, p: int, k: int, per_origin: bool, elem_size: int,
         return ()
     lanes = 1 << (count - 1).bit_length()
     s = p if per_origin and k else 1
-    per_config = 2 * s * n * u * elem_size
-    most = min(MAX_THREADS // (n * lanes), SMEM_LIMIT // per_config)
-    if most < 1:
-        return ()
+    row = n * u * elem_size            # a config's rows of one plane
     np_ = -(-n // 8) * 8
-    gs = dict.fromkeys([most] + [min(most, max(1, v // np_))
-                                 for v in (1, 64, 256)])
     cols = lanes * (vb // elem_size if vb else 1)
-    out = []
-    for g in gs:
-        threads = -(-g * n * lanes // 32) * 32
-        out.append(Plan(cols, vb, 0, threads, REG_TALLY_P, lanes, g, 0, 0,
-                        g * per_config))
-        smem = g * (per_config + (2 + k) * n * u * elem_size) + 16
-        if vb == 16 and smem <= SMEM_LIMIT:
-            out.append(Plan(cols, vb, 1, threads, REG_TALLY_P, lanes, g, 0,
-                            16, smem))
-    staged = [pl for pl in out if pl.bulk and pl.threads <= MAX_THREADS // 2]
-    default = max(staged, key=lambda pl: pl.configs) if staged else out[0]
-    return (default,) + tuple(pl for pl in out if pl != default)
+
+    def threads(g, lanes):                # whole warps of g·N·L lanes
+        return -(-g * n * lanes // 32) * 32
+
+    def choices(most):
+        return dict.fromkeys([most] + [min(most, max(1, v // np_))
+                                       for v in (1, 64, 256)]) \
+            if most >= 1 else {}
+
+    direct = [Plan(cols, vb, 0, threads(g, lanes), REG_TALLY_P, lanes, g,
+                   0, 0, g * 2 * s * row)
+              for g in choices(min(MAX_THREADS // (n * lanes),
+                                   SMEM_LIMIT // (2 * s * row)))]
+    ring = []
+    pair = count // 2                  # ring lanes: two vectors each
+    if vb == 16 and count == 2 * pair and pair & (pair - 1) == 0:
+        stage = (2 + k) * row          # a config's share of a stage
+
+        def ring_smem(g, st):
+            return st * (g * stage + 16) + g * s * row
+
+        most = (RING_THREADS - 32) // (n * pair)
+        while most > 0 and ring_smem(most, min(STAGES)) > SMEM_LIMIT:
+            most -= 1
+        for g in choices(most):
+            st = next(st for st in STAGES if ring_smem(g, st) <= SMEM_LIMIT)
+            ring.append(Plan(cols, 2 * vb, st, threads(g, pair) + 32,
+                             REG_TALLY_P, pair, g, 0, 16 * st,
+                             ring_smem(g, st)))
+    return tuple(ring + direct) if direct else ()
 
 
 def long_plans(n: int, p: int, k: int, per_origin: bool, elem_size: int,
@@ -307,7 +331,7 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
             extracts, emit_inbox, pl=None):
     """Launch the kernel under ``pl``, or, given none, under :func:`plan`
     of the operands' shape and alignment."""
-    global launches, last_launch
+    global launches, ring_launches, last_launch
     B.check_cuda("round_step", delta, x, buf, active, delivered, nbrs, rev)
     if pl is None:
         pl = plan(x.shape[1], nbrs.shape[-1],
@@ -318,6 +342,7 @@ def _launch(delta, x, buf, active, delivered, nbrs, rev, kind, per_origin,
     out, blocks = _kernel(delta, x, buf, active, delivered, nbrs, rev, kind,
                           per_origin, extracts, emit_inbox, pl)
     launches += launches_for(x.shape[0], pl)
+    ring_launches += int(pl.short and pl.bulk)
     last_launch = (pl, blocks)
     return out
 

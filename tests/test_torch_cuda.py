@@ -552,7 +552,11 @@ def test_round_step_short_kernel_vs_plain(sm90, kind_name, flavor, rng):
     plan's configs a block; B = 3,001 at N = 16, U = 32), the inbox on and
     off in turns, every fourth case δ in a view off 16 bytes: bit for bit
     the plain version, on the kernel the plan names (short where
-    ``short_plans`` has a plan), one launch counted."""
+    ``short_plans`` has a plan), one launch counted; and under every other
+    ring plan of the ladder (16-byte rows: senders in other warps, other
+    configs a block), one ring launch counted."""
+    from repro_torch.kernels import _build as KB
+
     kind = KINDS[kind_name][0]
     elem = 1 if kind_name == "max_bool" else 4
     case = 0
@@ -589,17 +593,35 @@ def test_round_step_short_kernel_vs_plain(sm90, kind_name, flavor, rng):
                 for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
                                      "ssend", "cnt", "dsz"), got, want):
                     assert_equal(a, w, f"{nm} n={n} u={u} b={b} off={off}")
+                rings = [q for q in kstep.plans(n, p, k, per_origin, elem, u,
+                                                aligned)
+                         if q.short and q.bulk and q != pl]
+                views = [None if t is None else KB.kernel_view(t, kind)
+                         for t in dev[:3]]
+                for q in rings:
+                    r0 = kstep.ring_launches
+                    got = kstep._launch(*views, *dev[3:], topo.nbrs.to(sm90),
+                                        topo.rev.to(sm90), kind, per_origin,
+                                        extracts, kw["emit_inbox"], pl=q)
+                    torch.cuda.synchronize()
+                    assert kstep.ring_launches == r0 + 1
+                    for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op",
+                                         "xsz", "ssend", "cnt", "dsz"), got,
+                                        want):
+                        assert_equal(a, w, f"{nm} n={n} u={u} b={b} {q}")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("flavor", sorted(FLAVORS))
-@pytest.mark.parametrize("n,u", [(16, 32), (50, 64), (15, 7)])
+@pytest.mark.parametrize("n,u", [(16, 32), (50, 64), (15, 7), (3, 64),
+                                 (17, 32)])
 def test_round_step_short_grid_strides(sm90, flavor, n, u, rng,
                                        monkeypatch):
     """With the short-row grid capped at 3 blocks, every block walks many
-    groups of configs (the store's shapes walk 8-114 groups a block; the
-    bulk-copied stage refills from group to group), under every short-row
-    plan, equal to the plain version."""
+    groups of configs (the store's shapes walk 8-114 groups a block; every
+    stage of the ring is refilled many times over, and B = 301 leaves a
+    last group short of g configs), under every short-row plan, equal to
+    the plain version."""
     monkeypatch.setattr(kstep, "MAX_BLOCKS", 3)
     topo, arrays, k, per_origin, extracts = round_case(
         rng, "max_i32", flavor, 301, n, u)
@@ -618,6 +640,44 @@ def test_round_step_short_grid_strides(sm90, flavor, n, u, rng,
             assert (a is None) == (w is None), (pl, nm)
             if a is not None:
                 assert torch.equal(a, w), (pl, nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [30_000, 196_608])
+def test_round_step_store_shapes_run_the_ring(sm90, nb):
+    """The Retwis store cells' round ([30,000, 50, 64] bprr, and a card's
+    block of the 786,432-object store, [196,608, 50, 64]) runs the
+    short-row ring: three rounds count three launches and three ring
+    launches; at 30,000 configs the round equals the plain version."""
+    topo = topology.partial_mesh(50, 4).on(sm90)
+    n, p, u = 50, topo.max_degree, 64
+    g = torch.Generator(device=sm90).manual_seed(nb)
+
+    def ints(*shape):
+        return torch.randint(0, 50, shape, generator=g, device=sm90,
+                             dtype=torch.int32)
+
+    torch.cuda.empty_cache()
+    args = (ints(nb, n, u), ints(nb, n, u), ints(p + 1, nb, n, u),
+            topo.mask.to(torch.int32).expand(nb, n, p).contiguous(),
+            ints(nb, n) % 2, topo.nbrs, topo.rev)
+    kw = dict(kind="max", per_origin=True, extracts=True)
+    n0, r0 = kstep.launches, kstep.ring_launches
+    for _ in range(3):
+        got = ops.round_step(*args, **kw)
+    torch.cuda.synchronize()
+    pl = kstep.last_launch[0]
+    assert pl.short and pl.bulk and pl.stages >= 2 and pl.configs == 1
+    assert kstep.launches - n0 == kstep.ring_launches - r0 == 3
+    if nb == 30_000:
+        want = kstep.plain(*args, **kw)
+        for nm, a, w in zip(("x'", "buf'", "inbox", "dsz_op", "xsz",
+                             "ssend", "cnt", "dsz"), got, want):
+            assert (a is None) == (w is None), nm
+            if a is not None:
+                assert torch.equal(a, w), nm
+    del got, args
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

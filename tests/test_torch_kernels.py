@@ -326,14 +326,14 @@ def test_round_step_scale_shapes_take_the_bulk_path(n, p, k, per_origin,
 
 @pytest.mark.parametrize(
     "n,p,k,per_origin,elem_size,u,aligned,configs,stages", [
-        (50, 4, 5, True, 4, 64, True, 1, 0),   # the Retwis store, bprr: 800
-        (50, 4, 1, False, 4, 64, True, 1, 0),  # threads, direct loads
-        (50, 4, 0, False, 4, 64, True, 1, 0),  # (classic, state)
-        (16, 4, 5, True, 4, 32, True, 4, 1),   # a million objects, bprr:
-        (16, 4, 1, False, 4, 32, True, 4, 1),  # 512 threads and a stage
-        (16, 4, 5, True, 4, 64, True, 1, 1),
+        (50, 4, 5, True, 4, 64, True, 1, 2),   # the Retwis store, bprr:
+        (50, 4, 1, False, 4, 64, True, 1, 3),  # 400 ring lanes and a
+        (50, 4, 0, False, 4, 64, True, 1, 3),  # producer (classic, state)
+        (16, 4, 5, True, 4, 32, True, 6, 2),   # a million objects, bprr:
+        (16, 4, 1, False, 4, 32, True, 7, 3),  # 448 lanes and a producer
+        (16, 4, 5, True, 4, 64, True, 3, 2),
         (15, 4, 5, True, 1, 128, True, 2, 0),  # bool rows: 4-byte lanes
-        (15, 3, 4, True, 4, 100, True, 1, 1),  # 25 vectors: 32 lanes
+        (15, 3, 4, True, 4, 100, True, 2, 0),  # 25 vectors: 32 lanes
         (9, 4, 1, False, 4, 32, False, 3, 0),  # an offset base: elements
         (3, 2, 3, True, 4, 7, True, 42, 0),    # 28-byte rows: 4-byte lanes
     ])
@@ -342,22 +342,27 @@ def test_round_step_short_rows_take_the_short_kernel(n, p, k, per_origin,
                                                      configs, stages):
     """Rows of at most 32 lane vectors take the short-row kernel: a lane
     group of L lanes (a power of two covering the row) a (config, node)
-    row, g configs a block in whole warps of at most 1,024 threads, two
-    buffers of the S send rows (and, staged, the 2+K input planes and an
-    mbarrier) within SMEM_LIMIT, one launch for any B."""
+    row, g configs a block in whole warps of at most 1,024 threads, and
+    within SMEM_LIMIT two buffers of the S send rows (direct loads), or
+    with the ring (rows of 2·L 16-byte vectors: two a lane) one producer
+    warp more, at most RING_THREADS in all, the ring's stages of the 2+K
+    input planes with two mbarriers each and one buffer of the send rows;
+    one launch for any B."""
     pl = kstep.plan(n, p, k, per_origin, elem_size, u, aligned)
     s = p if per_origin and k else 1
     vecs = u * elem_size // pl.vec_bytes if pl.vec_bytes else u
     assert pl.short and (pl.configs, pl.stages) == (configs, stages)
     assert pl.lanes & (pl.lanes - 1) == 0 and vecs <= pl.lanes <= 32
     assert pl.lanes < 2 * vecs
-    assert pl.vec_bytes == 0 if not aligned else pl.vec_bytes in (4, 8, 16)
-    assert pl.bulk == bool(stages) and (not pl.bulk or pl.vec_bytes == 16)
-    assert pl.configs * n * pl.lanes <= kstep.MAX_THREADS
-    assert pl.threads == -(-pl.configs * n * pl.lanes // 32) * 32
-    stage = (2 + k) * n * u * elem_size if pl.bulk else 0
-    assert pl.smem == pl.configs * (2 * s * n * u * elem_size + stage) \
-        + pl.bar_bytes <= kstep.SMEM_LIMIT
+    assert pl.vec_bytes == 0 if not aligned else \
+        pl.vec_bytes in (4, 8, 16, 32)
+    assert pl.bulk == bool(stages) == (pl.vec_bytes == 32)
+    lanes = -(-pl.configs * n * pl.lanes // 32) * 32
+    assert pl.threads == lanes + 32 * pl.bulk <= (
+        kstep.RING_THREADS if pl.bulk else kstep.MAX_THREADS)
+    row = pl.configs * n * u * elem_size
+    assert pl.smem == (stages * ((2 + k) * row + 16) + s * row if pl.bulk
+                       else 2 * s * row) <= kstep.SMEM_LIMIT
     assert kstep.launches_for(1 << 20, pl) == 1
 
 

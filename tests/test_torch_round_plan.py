@@ -17,17 +17,29 @@ from repro_torch.kernels import round_step as ks
 from repro_torch.sync import topology
 
 
-@pytest.mark.parametrize("shape", [
-    (15, 4, 5, True, 4, 4_194_304, True),   # the scale phase's mesh bprr
-    (50, 4, 5, True, 4, 64, True),          # the Retwis store, bprr
-    (50, 4, 1, False, 4, 64, True),         # the Retwis store, classic
-    (16, 4, 5, True, 4, 32, True),          # the million-object store
-    (9, 4, 0, False, 1, 300, False),        # bool rows, not aligned
-    (40, 8, 9, True, 4, 1000, True),
+@pytest.mark.parametrize("shape,first", [
+    # the scale phase's mesh bprr: the long-row ring of 128 columns
+    ((15, 4, 5, True, 4, 4_194_304, True), (128, 3, 1, False)),
+    # the Retwis store, bprr: the short-row ring, two stages of 89.6 KB
+    ((50, 4, 5, True, 4, 64, True), (64, 2, 1, True)),
+    # the Retwis store, classic: three stages of 38.4 KB
+    ((50, 4, 1, False, 4, 64, True), (64, 3, 1, True)),
+    # the million-object store: six configs a block, two stages
+    ((16, 4, 5, True, 4, 32, True), (32, 2, 6, True)),
+    # bool rows, not aligned: long rows, direct loads of one element
+    ((9, 4, 0, False, 1, 300, False), (32, 0, 1, False)),
+    # 40 nodes × 8 send rows: only 4-byte lanes' ring fits
+    ((40, 8, 9, True, 4, 1000, True), (32, 2, 1, False)),
 ])
-def test_plans_start_with_plan_and_fit(shape):
+def test_plans_start_with_plan_and_fit(shape, first):
+    """The ladder starts with :func:`round_step.plan` (its tile, stages,
+    configs a block and kernel as given), holds no plan twice, fits shared
+    memory, and keeps direct loads on the short-row ladder beside the
+    ring; rows off 16 bytes have direct loads only."""
     cands = ks.plans(*shape)
     assert cands[0] == ks.plan(*shape)
+    assert (cands[0].tile, cands[0].stages, cands[0].configs,
+            cands[0].short) == first
     assert len(set(cands)) == len(cands)
     for pl in cands:
         assert pl.smem <= ks.SMEM_LIMIT
@@ -36,47 +48,90 @@ def test_plans_start_with_plan_and_fit(shape):
             assert pl.tile == pl.lanes * (pl.vec_bytes // shape[4] or 1)
         else:              # a warp's
             assert pl.tile == 32 * (pl.vec_bytes or shape[4]) // shape[4]
+    if cands[0].short:
+        assert any(not pl.bulk for pl in cands)   # direct loads stay
     n, p, k, per_origin, elem, u, aligned = shape
     if not aligned or (u * elem) % 16:
         assert cands == (ks.plan(*shape),)        # direct loads only
 
 
-@pytest.mark.parametrize("shape,configs,default", [
-    # Np = 56: {1, 64 // 56, 256 // 56}; 800 threads: direct loads
-    ((50, 4, 5, True, 4, 64, True), [1], (1, 0)),
-    ((50, 4, 1, False, 4, 64, True), [1], (1, 0)),
-    # Np = 16: 16 cut to 8; 512 threads with the stage
-    ((16, 4, 5, True, 4, 32, True), [8, 1, 4], (4, 1)),
-    ((16, 4, 1, False, 4, 32, True), [8, 1, 4], (4, 1)),
-    ((9, 4, 0, False, 4, 64, True), [7, 1, 4], (1, 1)),   # 256 // 16 cut
-    ((15, 4, 5, True, 1, 128, True), [2, 1], (2, 0)),     # bool: no stage
+@pytest.mark.parametrize("shape,ring,direct", [
+    # Np = 56: {1, 64 // 56, 256 // 56}; 400 ring lanes or 800 direct:
+    # g = 1 either way
+    ((50, 4, 5, True, 4, 64, True), [(1, 2)], [1]),
+    ((50, 4, 1, False, 4, 64, True), [(1, 3)], [1]),
+    # Np = 16: the ring's most 6 (two stages and the send buffer fill
+    # shared memory), direct 8; 256 // 16 cut to them
+    ((16, 4, 5, True, 4, 32, True), [(6, 2), (1, 3), (4, 3)], [8, 1, 4]),
+    ((16, 4, 1, False, 4, 32, True), [(7, 3), (1, 3), (4, 3)], [8, 1, 4]),
+    ((9, 4, 0, False, 4, 64, True), [(6, 3), (1, 3), (4, 3)], [7, 1, 4]),
+    ((15, 4, 5, True, 1, 128, True), [], [2, 1]),   # bool: direct only
 ])
-def test_short_row_ladder_starts_from_the_tpu_choices(shape, configs,
-                                                      default):
-    """The short-row ladder: the most configs a block that fit, then the
-    TPU kernel's g choices {1, 64 // Np, 256 // Np} cut to what fits the
-    threads and shared memory, each with direct loads and (16-byte lanes,
-    where it fits) a bulk-copied stage, and no long-row plan. The default
-    (first) is the most configs in a block of at most 512 threads with the
-    stage, else the most configs with direct loads."""
+def test_short_row_ladder_starts_from_the_tpu_choices(shape, ring, direct):
+    """The short-row ladder: the ring's plans, then direct loads', each
+    over the most configs a block that fit it and then the TPU kernel's g
+    choices {1, 64 // Np, 256 // Np} cut to that, a ring plan with the
+    most stages that fit and two 16-byte vectors a lane; no long-row plan.
+    The default (first) is the ring with the most configs where a ring
+    fits, else direct loads with the most configs."""
     cands = ks.plans(*shape)
     short = [pl for pl in cands if pl.short]
-    assert set(pl.configs for pl in short) == set(configs)
-    assert (short[0].configs, short[0].stages) == default
+    assert [(pl.configs, pl.stages) for pl in short if pl.bulk] == ring
+    assert [pl.configs for pl in short if not pl.bulk] == direct
     assert cands == tuple(short) and cands[0] == ks.plan(*shape)
     n, p, k, per_origin, elem, u, _ = shape
     s = p if per_origin and k else 1
     for pl in short:
-        assert pl.threads <= ks.MAX_THREADS and pl.threads % 32 == 0
-        assert pl.stages in (0, 1) and pl.bulk == (pl.stages == 1)
-        stage = (2 + k) * n * u * elem if pl.bulk else 0
-        assert pl.smem == pl.configs * (2 * s * n * u * elem + stage) \
-            + pl.bar_bytes <= ks.SMEM_LIMIT
-        assert not pl.bulk or (pl.vec_bytes == 16 and pl.bar_bytes == 16)
-    staged = [pl for pl in short if pl.bulk and pl.threads <= 512]
-    assert short[0] == (max(staged, key=lambda pl: pl.configs) if staged
-                        else next(pl for pl in short if
-                                  pl.configs == configs[0] and not pl.bulk))
+        lanes = -(-pl.configs * n * pl.lanes // 32) * 32
+        assert pl.threads == lanes + (32 if pl.bulk else 0) <= (
+            ks.RING_THREADS if pl.bulk else ks.MAX_THREADS)
+        assert pl.bulk == (pl.stages in ks.STAGES) == (pl.vec_bytes == 32)
+        if not pl.bulk:
+            assert pl.smem == pl.configs * 2 * s * n * u * elem \
+                <= ks.SMEM_LIMIT
+    assert short[0] == next(pl for pl in short if pl.bulk == bool(ring))
+    assert short[0].configs == (ring[0][0] if ring else direct[0])
+
+
+@pytest.mark.parametrize("shape,ring", [
+    ((50, 4, 5, True, 4, 64, True), True),     # the Retwis store: bprr,
+    ((50, 4, 1, False, 4, 64, True), True),    # classic,
+    ((50, 4, 0, False, 4, 64, True), True),    # state
+    ((16, 4, 5, True, 4, 32, True), True),     # the million-object store
+    ((3, 2, 3, True, 4, 32, True), True),      # N = 3, P = 2
+    ((17, 4, 5, True, 4, 64, True), True),     # a node past a warp's rows
+    ((16, 4, 5, True, 4, 8, True), True),      # one ring lane a row
+    ((15, 3, 4, True, 4, 100, True), False),   # 25 vectors: an odd count
+    ((16, 4, 5, True, 4, 48, True), False),    # 12 vectors: 6 lanes
+    ((16, 4, 5, True, 4, 32, False), False),   # an offset base
+    ((16, 4, 5, True, 4, 34, True), False),    # 136-byte rows: 8-byte lanes
+    ((50, 4, 5, True, 1, 64, True), False),    # uint8 rows
+    ((15, 4, 1, False, 1, 128, True), False),
+])
+def test_short_row_ring_fits_shared_memory(shape, ring):
+    """Each ring plan's shared memory, exactly: its stages of the 2+K
+    input planes of g configs' rows, plus a full and an empty mbarrier a
+    stage, plus one buffer of the S send rows, within SMEM_LIMIT; the
+    most stages of STAGES that fit, two 16-byte vectors a lane. Rows off
+    16 bytes, of uint8, or not an even number of 16-byte vectors whose
+    half is a power of two get no ring plan."""
+    n, p, k, per_origin, elem, u, aligned = shape
+    short = [pl for pl in ks.plans(*shape) if pl.short]
+    rings = [pl for pl in short if pl.bulk]
+    assert short and bool(rings) == ring
+    assert short[0] == ks.plan(*shape) == (rings or short)[0]
+    s = p if per_origin and k else 1
+    for pl in rings:
+        assert pl.vec_bytes == 32 and pl.stages in ks.STAGES
+        assert 2 * pl.lanes * 16 == u * elem
+        row = pl.configs * n * u * elem
+        stage = (2 + k) * row
+        assert pl.bar_bytes == pl.stages * 2 * 8
+        assert pl.smem == pl.stages * stage + pl.bar_bytes + s * row \
+            <= ks.SMEM_LIMIT
+        more = [st for st in ks.STAGES if st > pl.stages]
+        assert all(st * (stage + 16) + s * row > ks.SMEM_LIMIT
+                   for st in more)
 
 
 def test_plans_raise_where_nothing_fits():
@@ -102,7 +157,7 @@ def test_round_step_on_the_cpu_asks_for_no_plan(monkeypatch):
 # several plans on its ladder: the Retwis cells' short rows, the
 # million-object store's, and long rows (whose ladder depends on U only
 # through alignment, so U = 4,096 has the 4M-key GMap's ladder).
-LAUNCH_SHAPES = {"retwis": (50, 64, 2), "million": (16, 32, 5),
+LAUNCH_SHAPES = {"retwis": (50, 64, 2), "million": (16, 32, 6),
                  "long": (15, 4096, 10)}
 
 
