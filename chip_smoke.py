@@ -41,10 +41,16 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    slots, bprr and classic; 1,048,576 × mesh16 × 32, bprr) beside their
    bounds; ``slot_bump``, the Retwis op stream's kernel (which replaces no
    TPU kernel and keeps its own launch counter, counted in every phase
-   below beside the eight), equal to its plain version with 500 rows and
+   below beside the nine of ``kernels.KERNELS``), equal to its plain version with 500 rows and
    with every row counted, launched once a call, and timed beside it and
    its byte bound at [30,000, 50, 64], a card's block of the
    786,432-object store [196,608, 50, 64] and [1,048,576, 16, 32];
+   ``merkle_descent``, the digest-driven resync's descent price (which
+   replaces no TPU kernel; in ``kernels.KERNELS``, so counted in every
+   phase below with the eight),
+   equal to its plain version at the rejoin's [15, 65,536, 3] leaves and
+   at 40,001 leaves (not a power of two), routed by the paper's mesh
+   (P = 4), launched once a call, and timed beside it and its byte bound;
 4. paper size, each run on all three engines (bit-identical, each kernel
    engine's launches equal to its rounds):
    - ``benchmarks/results/fig7_transmission.json`` (GSet, GCounter) and the
@@ -135,7 +141,7 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    on ``fused`` — device time by kernel and the device's busy share; a
    profiler failure fails the run;
 11. the model side's server (plain PyTorch; run after phase 10, the
-   launch counters zeroed and read: no kernel of the eight launches), each
+   launch counters zeroed and read: no kernel of the ten launches), each
    architecture at its full width with weights from seed 0 drawn on the
    card: qwen3-0.6b whole (28 layers) on R1 (``ServeRun``'s defaults:
    batch 4, prompt 32, 16 new tokens) and R2 (batch 8, prompt 2,048, 32
@@ -155,7 +161,7 @@ Needs one sm_90 CUDA device (an H100) and ``nvcc``; builds the kernels from
    near-ties; (iii) finite logits, tokens in range;
    (iv) no sync kernel launched;
 12. the model side's trainer (plain PyTorch; the launch counters zeroed
-   and read: no kernel of the eight launches), weights from seed 0 drawn
+   and read: no kernel of the ten launches), weights from seed 0 drawn
    on the card: (a) qwen3-0.6b whole at full width (28 layers, remat
    ``"nothing"``), sequence 4,096 (the registry's ``train_4k``), batch 4
    (cut from 256), ``make_train_step`` at microbatches 1 and 2, each a
@@ -943,6 +949,61 @@ def slot_bump_timings(check, dev, log):
                  first["bound_by"], None), shapes
 
 
+MERKLE_SHAPES = ((15, 65_536), (15, 40_001))   # rows, leaf blocks
+
+
+def merkle_descent_timings(check, dev, log):
+    """``merkle_descent``, the digest-driven resync's descent price, at the
+    rejoin's shapes: 15 trees of 65,536 leaf digests (4,194,304 keys in
+    64-key blocks) and of 40,001 (not a power of two: the zero padding),
+    routed by the paper's mesh (P = 4), some trees equal and some half
+    equal. At each, equal bit for bit to its plain version, one launch a
+    call, and timed beside the plain version and the byte bound of that
+    call (the leaves read, the routes read and the words written; the
+    trees stay in L2). Returns the error and the kernel table's timing at
+    the rejoin's shape."""
+    import torch
+
+    from repro_torch.kernels import merkle_descent as kmd
+    from repro_torch.sync import topology
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    err, shapes = 0.0, []
+    for rows, nb in MERKLE_SHAPES:
+        src = topology.partial_mesh(rows, 4).on(dev).routes[1]
+        p = src.shape[0]
+        leaf = rand_state(g, "words", (rows, nb, 3), dev)
+        leaf[::3] = leaf[0].clone()
+        leaf[1, : nb // 2] = leaf[2, : nb // 2]
+        before = kmd.launches
+        got = kmd.merkle_descent(leaf, src)
+        launched = kmd.launches - before
+        e = max_abs_err(got, kmd.plain(leaf, src))
+        err = max(err, e)
+        check(e == 0 and launched == 1,
+              f"merkle_descent [{rows}, {nb}, 3] P={p}: error {e}, "
+              f"{launched} launches")
+        nodes = (1 << (nb - 1).bit_length()) - 1      # internal nodes a tree
+        # a parent: two mixes, two products, two sums, a max (~20 ops); a
+        # compare: three channels and the count (~7 ops)
+        b_ms, b_by = bound(12 * rows * nb + 12 * p * rows,
+                           20 * rows * nodes + 7 * p * rows * nodes)
+        ms = time_ms(lambda: kmd.merkle_descent(leaf, src), reps=5)
+        plain_ms = time_ms(lambda: kmd.plain(leaf, src), reps=5)
+        shapes.append({"shape": f"[{rows}, {nb}, 3] int32, P = {p}",
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "max_abs_err": e,
+                       "launches_per_call": launched})
+        print(f"merkle_descent [{rows}, {nb}, 3] P={p}: {ms:.4f} ms (bound "
+              f"{b_ms:.4f} by {b_by}, {ms and b_ms / ms:.1%}), plain "
+              f"{plain_ms:.3f} ms, max_abs_err {e}", flush=True)
+        del leaf, got
+    first = shapes[0]
+    log["merkle_descent_timings"] = shapes
+    return err, (err, first["ms"], first["plain_ms"], first["bound_ms"],
+                 first["bound_by"], None)
+
+
 def elementwise_state(g, tname, shape, dev):
     """States of the elementwise kernels: 0/1 flags, small uint8 / int32,
     signed int8 over its whole range, full 32-bit words."""
@@ -1125,8 +1186,8 @@ def expected_launches(engine, algo, rounds, configs=1, row=None):
     most 65,535 configs, one launch either way);
     ``fused`` one ``round_recv`` (+ ``buffer_fold`` for bp/bprr); the resync
     modes one ``round_recv`` per round on either kernel engine, and
-    ``digest_driven`` one ``digest_blocks`` + one ``masked_extract``;
-    ``reference`` none."""
+    ``digest_driven`` one ``digest_blocks`` + one ``masked_extract`` + one
+    ``merkle_descent``; ``reference`` none."""
     from repro_torch.kernels import round_step as ks
 
     kern = engine in ("fused", "mega")
@@ -1149,6 +1210,7 @@ def expected_launches(engine, algo, rounds, configs=1, row=None):
             and algo in ("bp", "bprr") else 0,
             "digest_blocks": rounds if digest else 0,
             "masked_extract": rounds if digest else 0,
+            "merkle_descent": rounds if digest else 0,
             # no engine launches the elementwise kernels
             **{name: 0 for name in ELEMENTWISE}}
 
@@ -4813,6 +4875,9 @@ SOURCES = {
                       "src/repro/kernels/delta_extract.py:50"),
     "lex_join_delta": ("src/repro_torch/csrc/lex_join.cu",
                        "src/repro/kernels/lex_join.py:43"),
+    # the digest-driven resync's descent price replaces no TPU kernel (the
+    # JAX package prices the descent in plain jnp)
+    "merkle_descent": ("src/repro_torch/csrc/merkle_descent.cu", None),
 }
 # the kernels of the sync engines' main path (phases 4-6) and of the
 # lex-pair one (phase 7: the public elementwise entry points)
@@ -4923,9 +4988,12 @@ def main() -> int:
                          dev, log))
     store_shapes = timed("store_kernel_timings", store_kernel_timings, check,
                          dev, log)
+    grid_errs["merkle_descent"], timings["merkle_descent"] = timed(
+        "merkle_descent_timings", merkle_descent_timings, check, dev, log)
     # slot_bump, the Retwis op stream's kernel, replaces no TPU kernel and
     # keeps its own launch counter (kernels.KERNELS holds the eight that
-    # do): it is counted here path by path, beside launch_counts()
+    # do and merkle_descent): it is counted here path by path, beside
+    # launch_counts()
     sb_err, sb_timing, sb_shapes = timed(
         "slot_bump_timings", slot_bump_timings, check, dev, log)
     ops = {}
@@ -4948,7 +5016,7 @@ def main() -> int:
     launches = kernels.launch_counts()
     check(launches == expect.total, f"main-path launches {launches}, the "
                                     f"runs' rounds give {expect.total}")
-    for name in SYNC_KERNELS:
+    for name in SYNC_KERNELS + ("merkle_descent",):
         check(launches[name] > 0, f"{name} was never launched on the main "
                                   f"path")
     ops["unbatched"] = ksb.launches

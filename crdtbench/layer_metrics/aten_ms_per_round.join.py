@@ -1,0 +1,4 @@
+"""``aten_ms_per_round`` of the rejoin cell, whose ``round_ms`` is the
+resync round's: the same reading of the traced window."""
+
+from crdtbench.layer_metrics.aten_ms_per_round import read  # noqa: F401

@@ -5,7 +5,7 @@ Runs the paper's experiment — ``sync.simulate`` over the δ-family
 algorithms (state, classic, bp, rr, bprr) and the resync modes, under fault
 schedules, over the dense lattices (GSet, GCounter, GMap, BitGSet) and the
 tuple-state ones (LWWMap, LexCounter, PNCounter, products, linear sums) —
-on an NVIDIA H100 through eight hand-written CUDA kernels (``kernels/``,
+on an NVIDIA H100 through ten hand-written CUDA kernels (``kernels/``,
 sources in ``csrc/``), bit-identical to the JAX package, with sweeps and
 stores in device blocks (``launch.mesh``) and the control-plane gossip
 runtime (``runtime``). The model side is here too: the decoder stack for

@@ -1,18 +1,20 @@
 """The port's hand-written CUDA kernels (``csrc/``), each with its plain
 PyTorch version and a launch counter. :data:`KERNELS` holds the eight that
-replace the JAX package's Pallas kernels; ``slot_bump``, the Retwis op
-stream's kernel, replaces none and keeps its own counter
-(``slot_bump.launches``), which ``chip_smoke.py`` reads beside
-:func:`launch_counts`."""
+replace the JAX package's Pallas kernels and ``merkle_descent``, the
+digest-driven resync's descent price, which replaces none; ``slot_bump``,
+the Retwis op stream's kernel, keeps its own counter
+(``slot_bump.launches``, which ``chip_smoke.py`` reads beside
+:func:`launch_counts`)."""
 
 from repro_torch.kernels import (buffer_fold, delta_extract, digest_blocks,
-                                 join, lex_join, masked_extract, round_recv,
-                                 round_step)
+                                 join, lex_join, masked_extract,
+                                 merkle_descent, round_recv, round_step)
 
 KERNELS = {"round_step": round_step, "round_recv": round_recv,
            "buffer_fold": buffer_fold, "digest_blocks": digest_blocks,
            "masked_extract": masked_extract, "join": join,
-           "delta_extract": delta_extract, "lex_join_delta": lex_join}
+           "delta_extract": delta_extract, "lex_join_delta": lex_join,
+           "merkle_descent": merkle_descent}
 
 
 def reset_launches() -> None:

@@ -14,12 +14,13 @@ from repro_torch.kernels.digest_blocks import digest_blocks
 from repro_torch.kernels.join import join
 from repro_torch.kernels.lex_join import lex_join_delta
 from repro_torch.kernels.masked_extract import masked_extract
+from repro_torch.kernels.merkle_descent import merkle_descent
 from repro_torch.kernels.round_recv import round_recv
 from repro_torch.kernels.round_step import round_step
 
 __all__ = ["buffer_fold", "delta_extract", "digest_blocks", "join",
-           "lex_join_delta", "masked_extract", "pack_bits", "round_recv",
-           "sync_round", "unpack_bits"]
+           "lex_join_delta", "masked_extract", "merkle_descent", "pack_bits",
+           "round_recv", "sync_round", "unpack_bits"]
 
 
 def sync_round(delta, x, buf, active, delivered, *, nbrs, rev,

@@ -49,6 +49,15 @@ no "grid" layout.
 
 A round is one call of :meth:`SyncAlgorithm.round_step`; it never reads a
 device value on the host, so a loop of rounds only queues device work.
+
+A resync round carries ``torch.profiler`` labels (``obs.annotate``; no
+cost outside a profile), each once a round on every engine:
+``resync.digest`` (the local digests and their diff against the stored
+remote digests), ``resync.extract`` (Δ(state, blocks) for every slot),
+``resync.descent`` (the Merkle-descent price of every digest message) and
+``resync.receive`` (the gather, the mask and the join fold, then the
+stored digests' update or ``state_driven``'s responses). ``state_driven``
+carries ``resync.receive`` alone; the δ rounds carry none.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.lattice import Lattice
+from repro_torch.obs.trace import annotate
 from repro_torch.sync import digest as D
 from repro_torch.sync import engine as engine_mod
 from repro_torch.sync import treeops as T
@@ -447,9 +457,9 @@ class SyncAlgorithm:
         round; so faults need no retention — a lost message is subsumed by
         the next handshake, and a stale digest is safe because states only
         grow. On the kernel engines (``mega`` included) ``digest_driven``
-        runs one ``digest_blocks``, one ``masked_extract`` and one
-        ``round_recv`` launch per round, ``state_driven`` one
-        ``round_recv``."""
+        runs one ``digest_blocks``, one ``masked_extract``, one
+        ``merkle_descent`` and one ``round_recv`` call per round,
+        ``state_driven`` one ``round_recv``."""
         lat, topo = self.lattice, self.rows
         n = topo.num_nodes
         kernels = self.resolved_engine in engine_mod.KERNEL_ENGINES
@@ -480,27 +490,33 @@ class SyncAlgorithm:
             spec = self.digest_spec
             kind = lat.kernel_kind or "max"
             u = D.state_universe(self.bottom_shape)
-            if kernels:
-                local_dig = engine_mod.fused_digest(x, spec, kind)
-            else:
-                local_dig = D.digest_state(x, spec, kind)      # [R, nB, 3]
-            blocks = D.digest_diff(local_dig[None], dig) \
-                & dvalid[..., None]                            # [P, N, nB]
-            if kernels:
-                d_all = engine_mod.fused_extract(x, blocks, spec)
-            else:
-                em = D.block_mask_to_elems(blocks, u, spec)
-                d_all = D.extract_blocks(
-                    T.tree_map(lambda a: a[None], x), em)      # [P, N, U]
+            with annotate("resync.digest"):
+                if kernels:
+                    local_dig = engine_mod.fused_digest(x, spec, kind)
+                else:
+                    local_dig = D.digest_state(x, spec, kind)  # [R, nB, 3]
+                blocks = D.digest_diff(local_dig[None], dig) \
+                    & dvalid[..., None]                        # [P, N, nB]
+            with annotate("resync.extract"):
+                if kernels:
+                    d_all = engine_mod.fused_extract(x, blocks, spec)
+                else:
+                    em = D.block_mask_to_elems(blocks, u, spec)
+                    d_all = D.extract_blocks(
+                        T.tree_map(lambda a: a[None], x), em)  # [P, N, U]
             # The digest exchange is priced as the Merkle-descent
             # transcript between the two current trees, capped at the flat
             # leaf layer; an undelivered exchange costs the unanswered
             # root only.
-            dig_in = local_dig[topo.routes[1]]                 # [P, R, nB, 3]
-            ok = topo.mask if faults is None else topo.mask & faults.send_ok
-            desc = torch.clamp_max(D.descent_words(local_dig[None], dig_in),
-                                   spec.words(u))              # [P, N]
-            dig_words = torch.where(ok.T, desc, D.CHANNELS) * send_live
+            with annotate("resync.descent"):
+                ok = topo.mask if faults is None \
+                    else topo.mask & faults.send_ok
+                if kernels:
+                    desc = engine_mod.fused_descent(local_dig, topo.routes[1])
+                else:
+                    desc = D.routed_descent_words(local_dig, topo.routes[1])
+                desc = torch.clamp_max(desc, spec.words(u))    # [P, N]
+                dig_words = torch.where(ok.T, desc, D.CHANNELS) * send_live
 
         # (2) sends: tx counts what an up sender puts on the wire,
         # delivered or not
@@ -509,42 +525,47 @@ class SyncAlgorithm:
             tx = tx + self.msum(dig_words)
         cpu = cpu + tx
 
-        # (3) receive: gather and mask once (the masked inbox is also the
-        # Δ-response operand), then one join fold per engine
-        inbox = T.where_bot(valid, engine_mod.gather_inbox(d_all, topo))
-        recv_sizes = lat.size(inbox)                               # [P, R]
-        cpu = cpu + self.msum(recv_sizes)
-        recv = None
-        if recv_counts:
-            # telemetry: received payload and its novel part at join time
-            # (digest and descent words are metadata, not payload)
-            x, novel = self._join_inbox(x, inbox, want_novel=True)
-            recv = (recv_sizes.sum(0, dtype=torch.int32), novel)
-        else:
-            x = self._join_inbox(x, inbox)
+        with annotate("resync.receive"):
+            # (3) receive: gather and mask once (the masked inbox is also
+            # the Δ-response operand), then one join fold per engine
+            inbox = T.where_bot(valid, engine_mod.gather_inbox(d_all, topo))
+            recv_sizes = lat.size(inbox)                           # [P, R]
+            cpu = cpu + self.msum(recv_sizes)
+            recv = None
+            if recv_counts:
+                # telemetry: received payload and its novel part at join
+                # time (digest and descent words are metadata, not payload)
+                x, novel = self._join_inbox(x, inbox, want_novel=True)
+                recv = (recv_sizes.sum(0, dtype=torch.int32), novel)
+            else:
+                x = self._join_inbox(x, inbox)
 
-        if self.name == "state_driven":
-            # (4a) responses: Δ(x', request) for every delivered request,
-            # overwriting the response buffer (a lost request just skips
-            # this round's response; the initiator asks again)
-            req_ok = req_recv & valid
-            resp = T.where_bot(req_ok, lat.delta(self._bcast_sends(x), inbox))
-            rsz = lat.size(resp)                                   # [P, N]
-            cpu = cpu + self.msum(rsz)
-            buf = resp
-            buf_elems = rsz.sum(0, dtype=torch.int32)
-        else:
-            # (4b) store the delivered digests (each sender broadcast ONE
-            # digest to all its neighbours)
-            dig = torch.where(valid[..., None, None], dig_in, dig)
-            dvalid = dvalid | valid
-            aux = (dig, dvalid)
-            # digesting the state is one pass over U per up node
-            upm = torch.ones_like(dsz) if faults is None \
-                else faults.up.to(torch.int32)
-            cpu = cpu + self.msum(upm * u)
-            # memory: the stored remote digests are this mode's metadata
-            buf_elems = dvalid.sum(0, dtype=torch.int32) * spec.words(u)
+            if self.name == "state_driven":
+                # (4a) responses: Δ(x', request) for every delivered
+                # request, overwriting the response buffer (a lost request
+                # just skips this round's response; the initiator asks
+                # again)
+                req_ok = req_recv & valid
+                resp = T.where_bot(req_ok,
+                                   lat.delta(self._bcast_sends(x), inbox))
+                rsz = lat.size(resp)                               # [P, N]
+                cpu = cpu + self.msum(rsz)
+                buf = resp
+                buf_elems = rsz.sum(0, dtype=torch.int32)
+            else:
+                # (4b) store the delivered digests (each sender broadcast
+                # ONE digest to all its neighbours)
+                dig_in = local_dig[topo.routes[1]]         # [P, R, nB, 3]
+                dig = torch.where(valid[..., None, None], dig_in, dig)
+                dvalid = dvalid | valid
+                aux = (dig, dvalid)
+                # digesting the state is one pass over U per up node
+                upm = torch.ones_like(dsz) if faults is None \
+                    else faults.up.to(torch.int32)
+                cpu = cpu + self.msum(upm * u)
+                # memory: the stored remote digests are this mode's
+                # metadata
+                buf_elems = dvalid.sum(0, dtype=torch.int32) * spec.words(u)
 
         # the resync inbox was built masked: it is the provenance view
         return self._extras(

@@ -8,21 +8,23 @@ The digest layer of the ``digest_driven`` resync mode:
   ``[hash, count, agg]``: the position-weighted mixed sum of the block's
   values, the number of non-⊥ slots, and the block's unsigned max ("max"
   kinds) or or-fold ("bitor").
-* **Merkle roll-up** — ``descent_words`` prices a digest message as the
-  transcript of a Merkle descent (root first, recurse into differing
-  subtrees).
+* **Merkle roll-up** — ``merkle_levels`` folds a leaf layer up to its
+  root; ``routed_descent_words`` prices every digest message of a resync
+  round as the transcript of a Merkle descent (root first, recurse into
+  differing subtrees), every tree against its routed copies. Both are the
+  plain version of the CUDA kernel ``merkle_descent``
+  (``kernels/merkle_descent.py``), which the kernel engines run.
+  ``descent_words`` prices two broadcast leaf layers, as the JAX package's
+  function of that name does.
 * **Diff → mask → extract** — ``digest_diff`` turns a remote digest into a
   block mask and ``extract_blocks`` materialises Δ(state, block_mask).
 
-The JAX package's digests are uint32. Torch has no unsigned 32-bit
-arithmetic, so here a digest is an int32 bit-view of the same words, and
-the arithmetic runs on int64 holding values in [0, 2³²): every product and
-sum is reduced mod 2³² (``_mul32``, ``_mod32``), every max compares the
-unsigned values. The CUDA ``digest_blocks`` kernel computes the same words
-for one-tensor states. A tuple state (an LWWMap's lex pairs) digests each
-leaf and combines them with odd per-leaf multipliers, as the JAX package
-does (the identity for one leaf); such lattices run on the reference
-engine.
+A digest is an int32 bit-view of the JAX package's uint32 words, computed
+with the exact mod-2³² arithmetic of ``kernels/mod32.py``. The CUDA
+``digest_blocks`` kernel computes the same words for one-tensor states.
+A tuple state (an LWWMap's lex pairs) digests each leaf and combines them
+with odd per-leaf multipliers, as the JAX package does (the identity for
+one leaf); such lattices run on the reference engine.
 """
 
 from __future__ import annotations
@@ -32,17 +34,15 @@ import dataclasses
 import torch
 
 from repro_torch.core.lattice import tree_leaves, tree_map
-
-# Mixing constants (Knuth / murmur-style multiplicative hashing), the JAX
-# package's; all arithmetic is mod 2³², so sums agree in any order.
-WMUL = 0x85EBCA77
-LEAF_MUL = 0x27D4EB2F   # per-leaf multiplier of multi-leaf states
-PAIR_L = 0xC2B2AE35
-PAIR_R = 0x165667B1
-MIX1, MIX2 = 0x7FEB352D, 0x846CA68B
-
-CHANNELS = 3  # [hash, count, agg] 32-bit words per block
-M32 = 0xFFFFFFFF
+from repro_torch.kernels.merkle_descent import merkle_levels
+from repro_torch.kernels.merkle_descent import \
+    plain as routed_descent_words  # noqa: F401
+from repro_torch.kernels.mod32 import CHANNELS, LEAF_MUL, M32, WMUL
+from repro_torch.kernels.mod32 import mix64 as _mix64
+from repro_torch.kernels.mod32 import mod32 as _mod32
+from repro_torch.kernels.mod32 import mul32 as _mul32
+from repro_torch.kernels.mod32 import to_i32 as _to_i32
+from repro_torch.kernels.mod32 import u32 as _u32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,38 +89,7 @@ def digestable(lattice) -> bool:
         return False
 
 
-# -- exact mod-2³² arithmetic on int64 ------------------------------------------
-
-def _u32(t: torch.Tensor) -> torch.Tensor:
-    """Words (bool, uint8, int32 or int32 bit-views) as their unsigned
-    32-bit values, held in int64."""
-    return t.to(torch.int64) & M32
-
-
-def _mod32(v: torch.Tensor) -> torch.Tensor:
-    return v & M32
-
-
-def _mul32(a: torch.Tensor, b) -> torch.Tensor:
-    """a · b mod 2³² for a in [0, 2³²) and b (a tensor or a constant) in
-    [0, 2³²), in halves of 16 bits so no int64 product overflows."""
-    lo = (a & 0xFFFF) * b
-    hi = ((a >> 16) * b) & 0xFFFF
-    return (lo + (hi << 16)) & M32
-
-
-def _to_i32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2³²) -> int32 bit-views."""
-    return (((v + 2**31) & M32) - 2**31).to(torch.int32)
-
-
-def _mix64(v: torch.Tensor) -> torch.Tensor:
-    v = v ^ (v >> 16)
-    v = _mul32(v, MIX1)
-    v = v ^ (v >> 15)
-    v = _mul32(v, MIX2)
-    return v ^ (v >> 16)
-
+# -- block digests ------------------------------------------------------------
 
 def mix(v: torch.Tensor) -> torch.Tensor:
     """Elementwise fmix32-style avalanche mix of int32 bit-views (the JAX
@@ -202,32 +171,7 @@ def extract_blocks(state, elem_mask: torch.Tensor):
                     state)
 
 
-# -- Merkle roll-up and the descent cost model ----------------------------------
-
-def merkle_levels(leaf: torch.Tensor) -> list:
-    """Fold the leaf layer [..., nB, 3] (int32 bit-views) pairwise up to the
-    root. Returns ``[leaf_padded, ..., root]`` with level ℓ holding
-    2^(L-ℓ) nodes; the leaf layer is zero-padded to a power of two. A parent
-    mixes its children's hashes, adds their counts and takes the unsigned
-    max of their aggs."""
-    nb = leaf.shape[-2]
-    size = 1
-    while size < nb:
-        size *= 2
-    if size != nb:
-        leaf = torch.nn.functional.pad(leaf, (0, 0, 0, size - nb))
-    levels = [leaf]
-    cur = _u32(leaf)
-    while cur.shape[-2] > 1:
-        left, right = cur[..., ::2, :], cur[..., 1::2, :]
-        h = _mod32(_mul32(_mix64(left[..., 0]), PAIR_L)
-                   + _mul32(_mix64(right[..., 0]), PAIR_R))
-        cnt = _mod32(left[..., 1] + right[..., 1])
-        agg = torch.maximum(left[..., 2], right[..., 2])
-        cur = torch.stack([h, cnt, agg], -1)
-        levels.append(_to_i32(cur))
-    return levels
-
+# -- the descent cost model ---------------------------------------------------
 
 def descent_words(local_leaf: torch.Tensor,
                   remote_leaf: torch.Tensor) -> torch.Tensor:
@@ -236,7 +180,9 @@ def descent_words(local_leaf: torch.Tensor,
     sent; every differing internal node fetches its two children. Equal
     trees cost one node. ``local_leaf`` broadcasts against
     ``remote_leaf`` ([..., nB, 3]); returns int32 with the block axes
-    reduced away."""
+    reduced away. The JAX package's API, kept for callers that price two
+    leaf layers (the benchmark's reference is held to it); the resync
+    round takes ``routed_descent_words``, which folds each tree once."""
     loc = merkle_levels(local_leaf)
     rem = merkle_levels(remote_leaf)
     shape = torch.broadcast_shapes(loc[-1].shape[:-2], rem[-1].shape[:-2])

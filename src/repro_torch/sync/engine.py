@@ -13,8 +13,8 @@ Fault masks fold into the kernels' inputs: ``active`` = topology padding ∧
 delivery, ``delivered`` gates ``round_step``'s buffer clear. The resync
 modes (``state_driven``/``digest_driven``) take the per-phase kernels on
 both kernel engines, ``mega`` included: ``digest_blocks`` and
-``masked_extract`` for the digest exchange, one ``round_recv`` for the
-receive.
+``masked_extract`` for the digest exchange, ``merkle_descent`` for its
+price, one ``round_recv`` for the receive.
 
 Batched rounds (sweeps, the keyed store) come here over the rows of the
 tiled topology: the kernels see R = B·N rows, which is the JAX package's
@@ -224,6 +224,13 @@ def fused_digest(x, spec, kind: str):
     """Blockwise digest [R, nB, 3] of the states in one ``digest_blocks``
     launch; bit-identical to ``sync.digest.digest_state``."""
     return kops.digest_blocks(x, block_elems=spec.block_elems, kind=kind)
+
+
+def fused_descent(local_dig, src):
+    """The Merkle-descent words of every digest message, [R, nB, 3]
+    digests routed by ``src`` [P, R] -> [P, R], in one ``merkle_descent``
+    call; bit-identical to ``sync.digest.routed_descent_words``."""
+    return kops.merkle_descent(local_dig, src)
 
 
 def fused_extract(x, block_masks, spec):

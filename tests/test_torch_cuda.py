@@ -22,6 +22,7 @@ from repro_torch.kernels import digest_blocks as kdig
 from repro_torch.kernels import join as kjoin
 from repro_torch.kernels import lex_join as klex
 from repro_torch.kernels import masked_extract as kext
+from repro_torch.kernels import merkle_descent as kdesc
 from repro_torch.kernels import ops
 from repro_torch.kernels import round_recv as krecv
 from repro_torch.kernels import round_step as kstep
@@ -245,6 +246,30 @@ def test_masked_extract_kernel_vs_plain(sm90, kind_name, be, p, rng):
                          f"extract n={n} u={u}")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nb,p", [
+    (15, 65536, None), (15, 1, None), (15, 64, None), (8, 37, 3),
+    (50, 3, None), (3, 5000, 2), (1, 4096, 1), (2, 2 ** 22 + 3, 2)])
+def test_merkle_descent_kernel_vs_plain(sm90, rows, nb, p):
+    """Trees of one leaf, of a power of two and of other leaf counts (the
+    zero padding); one fold launch (64), two (the cell's 65,536, 5,000)
+    and three (2²² + 3); equal trees, half-equal ones and random ones,
+    routed by the paper's mesh or by random senders."""
+    g = torch.Generator().manual_seed(rows * nb)
+    src = topology.partial_mesh(rows, 4).routes[1] if p is None \
+        else torch.randint(0, rows, (p, rows), generator=g)
+    leaf = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, nb, 3), generator=g,
+                         dtype=torch.int32)
+    leaf[::3] = leaf[0].clone()
+    if rows > 2:
+        leaf[1, : nb // 2] = leaf[2, : nb // 2]
+    n0 = kdesc.launches
+    got = ops.merkle_descent(leaf.to(sm90), src.to(sm90))
+    torch.cuda.synchronize()
+    assert kdesc.launches == n0 + 1
+    assert_equal(got, ops.merkle_descent(leaf, src), f"descent {rows} {nb}")
+
+
 def expected_launches(engine, algo, rounds):
     kern = engine in ("fused", "mega")
     resync = algo in ("state_driven", "digest_driven")
@@ -256,6 +281,8 @@ def expected_launches(engine, algo, rounds):
             "digest_blocks": rounds if kern and algo == "digest_driven"
             else 0,
             "masked_extract": rounds if kern and algo == "digest_driven"
+            else 0,
+            "merkle_descent": rounds if kern and algo == "digest_driven"
             else 0,
             "join": 0, "delta_extract": 0, "lex_join_delta": 0}
 

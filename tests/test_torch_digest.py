@@ -1,8 +1,10 @@
 """The digest layer and the two digest kernels, JAX against the port.
 
 * ``sync/digest.py``: ``mix``, ``or_fold``, ``digest_state``, ``digest_diff``,
-  ``block_mask_to_elems``/``extract_blocks``, ``merkle_levels`` and
-  ``descent_words`` of the port equal the JAX package's word for word
+  ``block_mask_to_elems``/``extract_blocks``, ``merkle_levels``,
+  ``descent_words`` and ``routed_descent_words`` (against the JAX
+  package's ``descent_words`` of the routed trees) of the port equal the
+  JAX package's word for word
   (uint32 words ↔ int32 bit-views) for GSet (bool), GMap (int32) and
   BitGSet words with bit 31 set, at block widths 8, 32 and 64 and
   universes off every block multiple (the zero-padded last block enters
@@ -110,6 +112,13 @@ def test_digest_and_merkle_descent_match_jax(name, be, u):
     np.testing.assert_array_equal(dw.numpy(),
                                   np.asarray(J_DESCENT(jl, jr)))
     assert int(dw[0, 1]) == td.CHANNELS
+    # the resync round's form: every tree priced against every other
+    # (src[p, r] = p), held to the JAX package's routed trees directly
+    src = torch.arange(6)[:, None].expand(6, 6)
+    jw = jnp.asarray(want)
+    np.testing.assert_array_equal(
+        td.routed_descent_words(got, src).numpy(),
+        np.asarray(J_DESCENT(jw[None], jw[src.numpy()])))
 
 
 def test_spec_and_universe_checks():

@@ -150,7 +150,8 @@ def test_entry_points_default_to_the_card():
     # the CPU runs and calls took the plain versions: no kernel was launched
     assert "CPU" in out.stdout and " 0 ['buffer_fold', 'delta_extract', " \
         "'digest_blocks', 'join', 'lex_join_delta', 'masked_extract', " \
-        "'round_recv', 'round_step']" in out.stdout, out.stdout
+        "'merkle_descent', 'round_recv', 'round_step']" in out.stdout, \
+        out.stdout
 
 
 def test_serving_defaults_to_the_card():

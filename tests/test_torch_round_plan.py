@@ -236,7 +236,7 @@ def test_launch_plan_follows_the_operands_alignment(operand, monkeypatch):
 
 KERNEL_MODULES = ("round_step", "round_recv", "buffer_fold", "digest_blocks",
                   "masked_extract", "join", "delta_extract", "lex_join",
-                  "slot_bump", "_build")
+                  "merkle_descent", "mod32", "slot_bump", "_build")
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)
